@@ -2,24 +2,36 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path — multi-view-vote validation of MultiLabel
-over SparseConvUNet at the bench width (m=32, block_reps=2, residual
-blocks, 7 levels, scale 50, bf16 compute) on 5 synthetic scenes of
-150,000 points, 2 vote repetitions, seeded random weights — and checks it:
+Drives the port's two main paths at the bench width (MultiLabel over
+SparseConvUNet: m=32, block_reps=2, residual blocks, 7 levels, scale 50,
+bf16 compute; 5 synthetic scenes of 150,000 points, ``max_points``
+786,432; seeded random weights) and checks them:
 
 1. device: the card's name and power limit, torch and CUDA versions;
-2. build: the kernels' shared library (nvcc) and the native host planner
-   (g++), compiled from the checkout in parallel, timed;
+2. build: the kernels' two shared libraries (nvcc: forward K1/K4,
+   backward K2/K3/K5) and the native host planner (g++), compiled from
+   the checkout in parallel, timed;
 3. kernels: K1 (windowed_matmul_sub) and K4 (windowed_matmul) at the
    bench plans' level-0 shapes against their plain PyTorch versions on
    the card, with times (CUDA events), the plain versions' times and the
    bound of each on an H100; then, untimed, at the widest decoder conv;
-4. main path: ``validate`` with the launch counts set to 0 just before
-   and read just after; each kernel whose plan form the bench plans
-   contain must have launched exactly as often as the plans route to it;
-   the per-point logits of a full forward are held against the same
-   forward through the plain versions on the card;
-5. one JSON line with the numbers of every kernel the main path
+4. backward kernels: K2 (windowed_bwd_gather, both tap orientations),
+   K3 (windowed_dw_sub) and K5 (windowed_dw, the same windows in the
+   flat form) at the level-0 shape, and K3 at the widest conv of the
+   path, against their plain versions in bf16 and in f32, timed as in 3;
+5. validation: ``validate`` (2 vote repetitions) with the launch counts
+   set to 0 just before and read just after, equal to what the plans
+   route to each kernel; the per-point logits of a full forward held
+   against the same forward through the plain versions on the card;
+6. training: one bench batch through ``train_collate`` ->
+   ``attach_host_plans`` -> ``slim_batch_for_train`` (host, timed), then
+   3 ``train_step``s (forward with batch norm in train mode, scene
+   pooling, Classification loss, backward through the kernels, Adam) with
+   the launch counts set to 0 just before and read just after, equal to
+   the plans' routing; the loss is finite and every parameter moves; one
+   step's loss and gradients through the kernels are held against the
+   same step through the plain versions on the card;
+7. one JSON line with the numbers of every kernel the main paths
    launched, the card line from ``nvidia-smi``, and the result line.
 
 Any failure raises and the exit code is not 0.  Without CUDA, or without
@@ -30,7 +42,9 @@ no result.  Imports nothing of JAX or of the JAX package ``tdwss``.
 from __future__ import annotations
 
 import contextlib
+import copy
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -52,10 +66,49 @@ BF16_FLOPS_PER_S = 989e12          # dense bf16 tensor-core peak
 # rounding step apart — |d| <= 2^-7 * max|plain| (two ulps of the
 # largest value).
 KERNEL_TOL = 2.0 ** -7
+# The same kernels in f32: sums of at most 27 * C products in another
+# order, |d| <= 1e-4 * max|plain|.
+KERNEL_TOL_F32 = 1e-4
+# dW (f32 accumulation, bf16 or f32 inputs) vs its plain version: sums
+# over up to ~10^6 rows in another order.  Each kernel block sums its
+# chunk of ~1,500 rows in order (rounding ~1,500 * 2^-24 ~ 1e-4 of the
+# partial sums' magnitude), the chunks in a fixed order, while the plain
+# version sums through cuBLAS; |d| <= 1e-3 * max|plain| leaves a 10x
+# margin over that.
+DW_TOL = 1e-3
 # Full forward through the kernels vs through the plain versions (bf16):
 # one-ulp differences at a layer's output propagate through ~60 layers;
 # max |d| <= 0.05 * max |plain| and mean |d| <= 0.01 * mean |plain|.
 LOGITS_MAX_TOL, LOGITS_MEAN_TOL = 0.05, 0.01
+# One training step through the kernels vs the plain versions.
+# - Layer by layer (the gate on the kernels): every windowed conv's
+#   backward in the step is run again through the plain versions on the
+#   same inputs; dfeats within KERNEL_TOL (bf16) or KERNEL_TOL_F32, dW
+#   within DW_TOL.
+# - The whole step: the loss within 1e-2 relative in bf16 and 1e-5 in
+#   f32, and the f32 step's gradients, under PyTorch's deterministic
+#   algorithms (the spill adds sorted, not atomic): two runs through the
+#   kernels bit for bit, and kernels vs plain within 0.05 per tensor,
+#   ||g_kern - g_plain|| <= 0.05 ||g_plain||.  Whole-step gradients are
+#   ill-conditioned: the forward's rounding flips a few ReLU decisions
+#   at near-zero activations, and as the scene-pooled loss gives every
+#   voxel a cotangent of about the same size, one flipped entry moves the
+#   cotangent's norm by ~1/sqrt(entries), most at the small deep levels.
+#   ``python3 -m tdwss_torch.tools.step_grads`` measured, on an H100
+#   80GB HBM3 (700 W), kernels vs plain at 0.0059-0.0088 (largest per
+#   tensor, 4 seeds; 0.026 with vox_feats rounded to bf16), and faulted
+#   kernels at 0.37 (K2/K3 dW without one tap) and 0.15 (K2 dfeats
+#   without one row tile): 0.05 lies between.  A precision fault (K2 on
+#   bf16-rounded operands, 0.010) is within the spread; the layer-by-layer
+#   check is what catches it.  bf16 whole-step gradients differ by a
+#   median ~0.2 between two runs through the kernels (atomic spill
+#   adds), so only the bf16 loss is held.
+LOSS_RTOL = 1e-2
+LOSS_RTOL_F32, GRAD_RTOL_F32 = 1e-5, 0.05
+TRAIN_STEPS = 3
+STEPS_PER_EPOCH = 100
+# The reference's K2 width gate (tdwss/ops/sparse_conv.py:936, :1455)
+GATHER_MAX_C = 128
 
 
 def log(msg: str) -> None:
@@ -115,8 +168,11 @@ def phase_build():
         except BaseException as e:          # re-raised below
             errors.append(e)
 
-    threads = [threading.Thread(target=run, args=("kernels", windowed.build)),
-               threading.Thread(target=run, args=("planner", native.build))]
+    jobs = {"forward kernels": lambda: windowed.build("fwd"),
+            "backward kernels": lambda: windowed.build("bwd"),
+            "planner": native.build}
+    threads = [threading.Thread(target=run, args=item)
+               for item in jobs.items()]
     for t in threads:
         t.start()
     for t in threads:
@@ -126,10 +182,13 @@ def phase_build():
     native.require()
     for name, (path, secs) in results.items():
         log(f"build {name}: {secs:.2f} s -> {os.path.relpath(path, HERE)}")
-    with open(results["kernels"][0] + ".log") as f:
-        regs = [ln.strip() for ln in f if "registers" in ln]
-    for ln in regs:
-        log(f"ptxas: {ln}")
+    for name in ("forward kernels", "backward kernels"):
+        with open(results[name][0] + ".log") as f:
+            lines = f.read().splitlines()
+        for i, ln in enumerate(lines):
+            if "registers" in ln:
+                fn = lines[i - 1].split("'")[1] if "'" in lines[i - 1] else ""
+                log(f"ptxas: {fn[:60]} {ln.strip()}")
 
 
 def level_case(plans, level, c, cout, device, gen):
@@ -154,25 +213,45 @@ def level_case(plans, level, c, cout, device, gen):
     x = torch.randn((v, c), generator=gen).to(device, torch.bfloat16)
     w = (torch.randn((k, c, cout), generator=gen) * (2.0 / (k * c)) ** 0.5
          ).to(device, torch.bfloat16)
-    return dict(x=x, w=w, starts=starts, soff=soff, rb=rb, rb_flat=rb_flat,
-                tile=tile, window=win.window, sub=win.sub, subwin=win.subwin)
+    dout = torch.randn((v, cout), generator=gen).to(device, torch.bfloat16)
+    return dict(x=x, w=w, dout=dout, starts=starts, soff=soff, rb=rb,
+                rb_flat=rb_flat, tile=tile, window=win.window, sub=win.sub,
+                subwin=win.subwin)
 
 
-def check_against_plain(name, out, ref, label):
-    """Max |kernel - plain| against the stated tolerance; raises beyond it."""
+def check_against_plain(name, out, ref, label, tol_rel=KERNEL_TOL):
+    """Max |kernel - plain| against ``tol_rel * max|plain|``; raises
+    beyond it."""
     import torch
 
     d = (out.float() - ref.float()).abs()
     scale = ref.float().abs().max().item()
     err = d.max().item()
-    tol = KERNEL_TOL * scale
-    log(f"{name}: {label} bf16: max|d|={err:.6g} (relative "
-        f"{err / scale:.3g}; tolerance {tol:.6g} = 2^-7 * max|plain| "
-        f"{scale:.6g})")
+    tol = tol_rel * scale
+    log(f"{name}: {label}: max|d|={err:.6g} (relative "
+        f"{err / scale:.3g}; tolerance {tol:.6g} = {tol_rel:.3g} * "
+        f"max|plain| {scale:.6g})")
     if not (torch.isfinite(out.float()).all() and err <= tol):
         raise AssertionError(f"{name} disagrees with its plain version: "
                              f"{err} > {tol}")
     return err
+
+
+def kernel_row(name, source, replaces, run, plain, work, err):
+    """Time ``run`` and ``plain`` (CUDA events) and bound the work."""
+    ms = cuda_time_ms(run, iters=20)
+    plain_ms = cuda_time_ms(plain, iters=3, warmup=1)
+    nbytes, flops = work()
+    bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ops = flops / BF16_FLOPS_PER_S * 1e3
+    bound_ms = max(bound_bytes, bound_ops)
+    log(f"{name}: {ms:.4f} ms (median of 20), plain {plain_ms:.3f} ms, "
+        f"bound {bound_ms:.4f} ms ({nbytes} B, {flops} flop)")
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms,
+                bound_by="bytes" if bound_bytes >= bound_ops else "operations",
+                library_ms=None)
 
 
 def phase_kernels(case):
@@ -212,23 +291,11 @@ def phase_kernels(case):
         torch.cuda.synchronize()
         err = check_against_plain(
             kern["name"], out, ref, f"V={x.shape[0]} C={x.shape[1]} "
-            f"Cout={w.shape[2]} K={w.shape[0]}")
+            f"Cout={w.shape[2]} K={w.shape[0]} bf16")
         outs[kern["name"]] = out
-        ms = cuda_time_ms(kern["run"], iters=20)
-        plain_ms = cuda_time_ms(kern["plain"], iters=3, warmup=1)
-        nbytes, flops = kern["work"]()
-        bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        bound_ops = flops / BF16_FLOPS_PER_S * 1e3
-        bound_ms = max(bound_bytes, bound_ops)
-        log(f"{kern['name']}: {ms:.4f} ms (median of 20), plain "
-            f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
-            f"({nbytes} B, {flops} flop)")
-        rows.append(dict(
-            name=kern["name"], route="cuda", source=kern["source"],
-            replaces=kern["replaces"], launches=0, max_abs_err=err,
-            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-            bound_by="bytes" if bound_bytes >= bound_ops else "operations",
-            library_ms=None))
+        rows.append(kernel_row(kern["name"], kern["source"],
+                               kern["replaces"], kern["run"], kern["plain"],
+                               kern["work"], err))
     same = (outs[W.K1].float() - outs[W.K4].float()).abs().max().item()
     log(f"K1 (sub form) vs K4 (flat form) on the same level-0 windows: "
         f"max|d| = {same}")
@@ -246,7 +313,7 @@ def phase_wide(wide):
 
     x, w, st = wide["x"], wide["w"], wide["starts"].reshape(-1)
     label = (f"V={x.shape[0]} C={x.shape[1]} Cout={w.shape[2]} "
-             f"K={w.shape[0]}")
+             f"K={w.shape[0]} bf16")
     args = (wide["window"], wide["tile"], wide["sub"], wide["subwin"])
     soff = wide["soff"].reshape(-1)
     out = W.windowed_matmul_sub(x, st, soff, wide["rb"].t(), w, *args)
@@ -261,48 +328,215 @@ def phase_wide(wide):
     check_against_plain(W.K4, out4, ref4, label)
 
 
-def expected_launches(cfg, plans, reps: int):
-    """Kernel launches the plans route ``reps`` forwards to, per kernel:
-    every windowed subm conv (stem, encoder and decoder blocks) and, where
-    a level has both cross-level plans, its strided conv (down plan) and
-    deconv (up plan) go to K1 when sub-form, K4 when flat."""
+def phase_bwd_kernels(case, wide):
+    """K2 (both tap orientations), K3 and K5 at the level-0 shape and K3
+    at the widest conv of the path, against their plain versions in bf16
+    and f32; timed rows for K2 (flipped taps, the subm route), K3 and K5
+    at level 0, and K3's time at the widest shape."""
+    import torch
+
     from tdwss_torch.ops import windowed as W
 
-    pc = cfg.pointcloud_model
-    per_block = 2 if pc.residual_blocks else 1
-    counts = {W.K1: 0, W.K4: 0}
-    n = len(plans.levels)
-    for i, lvl in enumerate(plans.levels):
-        convs = pc.block_reps * per_block * (2 if i + 1 < n else 1)
-        convs += 1 if i == 0 else 0                      # the stem
-        uses = [(lvl.win, convs)]
+    src = "tdwss_torch/csrc/windowed_bwd.cu"
+
+    def args(cs, dtype):
+        st = cs["starts"].reshape(-1)
+        soff = cs["soff"].reshape(-1)
+        x, dout = cs["x"].to(dtype), cs["dout"].to(dtype)
+        # K2's operands: the cotangent (width Cout) is its gather source,
+        # the primal rows (width C) its dense side, wt[a] = W[26-a]^T
+        wt = cs["w"].to(dtype).flip(0).transpose(1, 2).contiguous()
+        geo = (cs["window"], cs["tile"], cs["sub"], cs["subwin"])
+        flat = (cs["window"], cs["tile"])
+        return dict(
+            k2=lambda fn, flip: fn(dout, x, st, soff, cs["rb"].t(), wt, *geo,
+                                   flip_taps=flip),
+            k3=lambda fn: fn(x, st, soff, cs["rb"].t(), dout, *geo),
+            k5=lambda fn: fn(x, st, cs["rb_flat"].t(), dout, *flat),
+            work_k2=lambda: W.work_bwd_gather(dout, x, st, soff,
+                                              cs["rb"].t(), wt, cs["tile"],
+                                              cs["sub"], cs["subwin"]),
+            work_k3=lambda: W.work_dw(x, st, soff, cs["rb"].t(), dout,
+                                      cs["tile"], cs["sub"], cs["subwin"]),
+            work_k5=lambda: W.work_dw(x, st, None, cs["rb_flat"].t(), dout,
+                                      cs["tile"], 0, cs["window"]),
+            label=(f"V={x.shape[0]} C={x.shape[1]} Cout={dout.shape[1]} "
+                   f"K={cs['rb'].shape[1]} {str(dtype)[6:]}"))
+
+    errs = {}
+    for dtype, tol in ((torch.bfloat16, KERNEL_TOL),
+                       (torch.float32, KERNEL_TOL_F32)):
+        a = args(case, dtype)
+        for flip in (True, False):
+            (dx, dw), (pdx, pdw) = (a["k2"](W.windowed_bwd_gather, flip),
+                                    a["k2"](W.windowed_bwd_gather_plain,
+                                            flip))
+            torch.cuda.synchronize()
+            lab = f"{a['label']} flip_taps={flip}"
+            e = check_against_plain(W.K2, dx, pdx, f"dfeats {lab}", tol)
+            e = max(e, check_against_plain(W.K2, dw, pdw, f"dW {lab}",
+                                           DW_TOL))
+            if dtype == torch.bfloat16 and flip:
+                errs[W.K2] = e
+        for name, key, fn, plain in (
+                (W.K3, "k3", W.windowed_dw_sub, W.windowed_dw_sub_plain),
+                (W.K5, "k5", W.windowed_dw, W.windowed_dw_plain)):
+            out, ref = a[key](fn), a[key](plain)
+            torch.cuda.synchronize()
+            e = check_against_plain(name, out, ref, f"dW {a['label']}",
+                                    DW_TOL)
+            if dtype == torch.bfloat16:
+                errs[name] = e
+        w = args(wide, dtype)
+        out, ref = w["k3"](W.windowed_dw_sub), w["k3"](W.windowed_dw_sub_plain)
+        torch.cuda.synchronize()
+        check_against_plain(W.K3, out, ref, f"dW {w['label']}", DW_TOL)
+    # the two tap orientations differ only in where tap a's dW lands
+    a = args(case, torch.bfloat16)
+    _, dw_f = a["k2"](W.windowed_bwd_gather, True)
+    _, dw_n = a["k2"](W.windowed_bwd_gather, False)
+    if not torch.equal(dw_f, dw_n.flip(0)):
+        raise AssertionError("K2's two tap orientations disagree")
+    # dW is reduced over chunks in a fixed order: bitwise reproducible
+    if not torch.equal(a["k3"](W.windowed_dw_sub),
+                       a["k3"](W.windowed_dw_sub)):
+        raise AssertionError("K3's dW is not reproducible run to run")
+
+    rows = [kernel_row(W.K2, src, "tdwss/ops/pallas_subm.py:926",
+                       lambda: a["k2"](W.windowed_bwd_gather, True),
+                       lambda: a["k2"](W.windowed_bwd_gather_plain, True),
+                       a["work_k2"], errs[W.K2]),
+            kernel_row(W.K3, src, "tdwss/ops/pallas_subm.py:1122",
+                       lambda: a["k3"](W.windowed_dw_sub),
+                       lambda: a["k3"](W.windowed_dw_sub_plain),
+                       a["work_k3"], errs[W.K3]),
+            kernel_row(W.K5, src, "tdwss/ops/pallas_subm.py:473",
+                       lambda: a["k5"](W.windowed_dw),
+                       lambda: a["k5"](W.windowed_dw_plain),
+                       a["work_k5"], errs[W.K5])]
+    w = args(wide, torch.bfloat16)
+    log(f"{W.K3} at the widest conv ({w['label']}):")
+    kernel_row(W.K3, src, "", lambda: w["k3"](W.windowed_dw_sub),
+               lambda: w["k3"](W.windowed_dw_sub_plain), w["work_k3"], 0.0)
+    return rows
+
+
+def expected_launches(model, plans, train: bool, reps: int = 1):
+    """Kernel launches the plans route ``reps`` forwards (and, with
+    ``train``, backwards) to, per kernel, from each windowed conv's plan
+    form and channel widths.
+
+    Forward: every windowed subm conv (the stem, the encoder and decoder
+    blocks) and, where a level has both cross-level plans, its strided
+    conv (down plan) and deconv (up plan) go to K1 when sub-form, K4 when
+    flat.  Backward: where the backward plan is sub-form and both widths
+    are at most GATHER_MAX_C, K2; otherwise K3 (sub) or K5 (flat) on the
+    forward plan for dW, and K1 or K4 on the backward plan for dfeats,
+    except at the stem, whose input needs no gradient.
+    """
+    from tdwss_torch.ops import windowed as W
+
+    counts = {name: 0 for name in W.launches}
+    fwd = {True: W.K1, False: W.K4}
+
+    def conv(plan, bplan, kernel, needs_dfeats=True):
+        if plan is None:
+            return                           # rulebook route: no kernel
+        counts[fwd[bool(plan.sub)]] += reps
+        if not train:
+            return
+        _, cin, cout = kernel.shape
+        if bplan.sub and cin <= GATHER_MAX_C and cout <= GATHER_MAX_C:
+            counts[W.K2] += reps
+        else:
+            counts[W.K3 if plan.sub else W.K5] += reps
+            if needs_dfeats:
+                counts[fwd[bool(bplan.sub)]] += reps
+
+    enc = model.pc_encoder
+    level0 = plans.levels[0]
+    conv(level0.win, level0.win, enc.stem.kernel, needs_dfeats=False)
+    body, i = enc.body, 0
+    while True:
+        lvl = plans.levels[i]
+        blocks = [getattr(body, f"enc{j}") for j in range(body.reps)]
+        if body.deep:
+            blocks += [getattr(body, f"dec{j}") for j in range(body.reps)]
+        for blk in blocks:
+            for name in ("conv", "conv1", "conv2"):
+                if hasattr(blk, name):
+                    conv(lvl.win, lvl.win, getattr(blk, name).kernel)
+        if not body.deep:
+            return counts
         if lvl.wg_down is not None and lvl.wg_up is not None:
-            uses += [(lvl.wg_down, 1), (lvl.wg_up, 1)]
-        for plan, k in uses:
-            if plan is not None:
-                counts[W.K1 if plan.sub else W.K4] += k * reps
-    return counts
+            conv(lvl.wg_down, lvl.wg_up, body.down_conv.kernel)
+            conv(lvl.wg_up, lvl.wg_down, body.up_deconv.kernel)
+        body, i = body.inner, i + 1
 
 
 @contextlib.contextmanager
 def plain_versions():
-    """Route the model's windowed evaluations through the plain versions
-    (for the comparison forward only)."""
+    """Route the model's windowed evaluations, forward and backward,
+    through the plain versions (for the comparison runs only)."""
     from tdwss_torch.ops import sparse_conv
     from tdwss_torch.ops import windowed as W
 
-    saved = (sparse_conv.windowed_matmul_sub, sparse_conv.windowed_matmul)
-    sparse_conv.windowed_matmul_sub = W.windowed_matmul_sub_plain
-    sparse_conv.windowed_matmul = W.windowed_matmul_plain
+    names = ("windowed_matmul_sub", "windowed_matmul", "windowed_bwd_gather",
+             "windowed_dw_sub", "windowed_dw")
+    saved = {n: getattr(sparse_conv, n) for n in names}
+    for n in names:
+        setattr(sparse_conv, n, getattr(W, n + "_plain"))
     try:
         yield
     finally:
-        sparse_conv.windowed_matmul_sub, sparse_conv.windowed_matmul = saved
+        for n, fn in saved.items():
+            setattr(sparse_conv, n, fn)
+
+
+@contextlib.contextmanager
+def layer_by_layer_check(dfeats_tol, dw_tol):
+    """Run every windowed conv backward of the enclosed step a second time
+    through the plain versions on the same inputs and compare (dfeats
+    within ``dfeats_tol``, dW within ``dw_tol`` of max|plain|); yields a
+    dict with the count and the largest relative errors."""
+    from tdwss_torch.ops import sparse_conv
+
+    seen = {"n": 0, "dfeats": 0.0, "dw": 0.0}
+
+    def rel(a, b, tol, what, label):
+        scale = b.float().abs().max().item()
+        err = (a.float() - b.float()).abs().max().item()
+        r = err / scale if scale > 0 else (0.0 if err == 0 else math.inf)
+        seen[what] = max(seen[what], r)
+        if not r <= tol:
+            raise AssertionError(f"{label}: {what} through the kernels "
+                                 f"disagrees with the plain versions: "
+                                 f"{r} > {tol}")
+
+    def wrap(fn):
+        def checked(feats, weight, dout, *rest):
+            dfeats, dw = fn(feats, weight, dout, *rest)
+            with plain_versions():
+                pdfeats, pdw = fn(feats, weight, dout, *rest)
+            seen["n"] += 1
+            label = (f"{fn.__name__} V={feats.shape[0]} "
+                     f"W={tuple(weight.shape)}")
+            if pdfeats is not None:
+                rel(dfeats, pdfeats, dfeats_tol, "dfeats", label)
+            rel(dw, pdw, dw_tol, "dw", label)
+            return dfeats, dw
+        return checked
+
+    saved = (sparse_conv._subm_w27_backward, sparse_conv._wg_backward)
+    sparse_conv._subm_w27_backward = wrap(saved[0])
+    sparse_conv._wg_backward = wrap(saved[1])
+    try:
+        yield seen
+    finally:
+        sparse_conv._subm_w27_backward, sparse_conv._wg_backward = saved
 
 
 def phase_main(cfg, scenes, plans_rep1, batch_rep1, device):
-    import math
-
     import torch
 
     from tdwss_torch.engine.evaluate import validate
@@ -324,16 +558,11 @@ def phase_main(cfg, scenes, plans_rep1, batch_rep1, device):
         f" GiB")
     if len(ious) != VAL_REPS or not all(math.isfinite(x) for x in ious):
         raise AssertionError(f"bad mIoU list {ious}")
-    want = expected_launches(cfg, plans_rep1, VAL_REPS)
-    log(f"launches on the main path: {launches}; routed by the plans: "
-        f"{want}")
+    want = expected_launches(model, plans_rep1, train=False, reps=VAL_REPS)
+    log(f"launches in validate: {launches}; routed by the plans: {want}")
     if launches != want or launches[W.K1] == 0:
-        raise AssertionError("main-path launches differ from the plans' "
+        raise AssertionError("validate's launches differ from the plans' "
                              f"routing: {launches} vs {want}")
-    for name, n in want.items():
-        if n == 0:
-            log(f"{name}: its plan form does not occur in the bench plans "
-                f"(every level is sub-form), so the main path runs it 0 times")
 
     b = batch_rep1.to(device)
     logits = eval_step(model, b)
@@ -355,6 +584,153 @@ def phase_main(cfg, scenes, plans_rep1, batch_rep1, device):
     if dmax > LOGITS_MAX_TOL * rmax or dmean > LOGITS_MEAN_TOL * rmean:
         raise AssertionError("main-path logits disagree with the plain "
                              "versions beyond the stated tolerance")
+    return launches
+
+
+def phase_train(cfg, scenes, device):
+    """One bench batch, 3 training steps, launches against the plans'
+    routing, and one step's loss and gradients against the plain
+    versions."""
+    import numpy as np
+    import torch
+
+    from tdwss_torch.data.collate import train_collate
+    from tdwss_torch.data.plans import attach_host_plans, slim_batch_for_train
+    from tdwss_torch.engine.steps import (compute_loss, make_optimizer,
+                                          train_step)
+    from tdwss_torch.models.meta_arch import build_model
+    from tdwss_torch.ops import windowed as W
+    from tdwss_torch.ops.host_plan import reset_sticky_plans
+
+    reset_sticky_plans()
+    t = time.perf_counter()
+    planned = attach_host_plans(
+        train_collate(scenes, cfg, np.random.default_rng(0)), cfg)
+    host = slim_batch_for_train(planned, cfg)
+    host_s = time.perf_counter() - t
+    lvl0 = host.plans.levels[0]
+    log(f"train batch on the host (collate + plans + slim): {host_s:.3f} s;"
+        f" level 0: V={lvl0.grid.valid.shape[0]} "
+        f"valid={int(lvl0.grid.valid.sum())}")
+    t = time.perf_counter()
+    batch = host.to(device)
+    torch.cuda.synchronize()
+    log(f"train batch to the card: {time.perf_counter() - t:.3f} s")
+
+    model = build_model(cfg, seed=0, device=device)
+    opt, sched = make_optimizer(cfg, model, STEPS_PER_EPOCH)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    W.reset_launches()
+    losses, step_s = [], []
+    for _ in range(TRAIN_STEPS):
+        t = time.perf_counter()
+        loss, _ = train_step(cfg, model, opt, sched, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        losses.append(loss)
+    launches = dict(W.launches)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [float(x) for x in losses]
+    for i, (x, sec) in enumerate(zip(losses, step_s)):
+        log(f"train step {i + 1}: loss {x:.6f}; device {sec:.3f} s "
+            f"(forward + backward + Adam, ended by a synchronise); host "
+            f"planning of its batch {host_s:.3f} s")
+    log(f"peak device memory over the steps: {peak:.2f} GiB")
+    want = expected_launches(model, host.plans, train=True,
+                             reps=TRAIN_STEPS)
+    log(f"launches in {TRAIN_STEPS} training steps: {launches}; routed by "
+        f"the plans: {want}")
+    if launches != want or not (launches[W.K1] and launches[W.K2]
+                                and launches[W.K3]):
+        raise AssertionError("training launches differ from the plans' "
+                             f"routing: {launches} vs {want}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite training loss {losses}")
+    unmoved = [n for n, p in model.named_parameters()
+               if torch.equal(p.detach(), before[n])]
+    if unmoved:
+        raise AssertionError(f"parameters that did not move: {unmoved}")
+    log(f"all {len(before)} parameter tensors moved over {TRAIN_STEPS} "
+        f"steps")
+    del model, opt, sched, before
+
+    def loss_and_grads(model, ctx):
+        model.zero_grad(set_to_none=True)
+        with ctx:
+            loss, _ = compute_loss(cfg_of[id(model)], model,
+                                   batch_of[id(model)])
+            loss.backward()
+        torch.cuda.synchronize()
+        return float(loss.detach()), {n: p.grad.detach().float().clone()
+                                      for n, p in model.named_parameters()}
+
+    def ratios(ga, gb):
+        out = []
+        for n in ga:
+            ref = torch.linalg.vector_norm(gb[n]).item()
+            diff = torch.linalg.vector_norm(ga[n] - gb[n]).item()
+            out.append((diff / ref if ref > 0 else
+                        (0.0 if diff == 0 else math.inf), n))
+        return sorted(out, reverse=True)
+
+    def check_loss(dtype, lk, lp, tol):
+        rel = abs(lk - lp) / abs(lp)
+        log(f"one {dtype} step's loss through the kernels vs the plain "
+            f"versions: {lk:.8f} vs {lp:.8f} (relative {rel:.3g}, limit "
+            f"{tol})")
+        if not rel <= tol:
+            raise AssertionError(f"the {dtype} training loss through the "
+                                 "kernels disagrees with the plain versions")
+
+    def summary(rs):
+        return (", ".join(f"{n} {r:.3g}" for r, n in rs[:3])
+                + f"; median {rs[len(rs) // 2][0]:.3g}")
+
+    cfg32 = copy.deepcopy(cfg)
+    cfg32.engine.compute_dtype = "float32"
+    m16 = build_model(cfg, seed=0, device=device)
+    m32 = build_model(cfg32, seed=0, device=device)
+    cfg_of = {id(m16): cfg, id(m32): cfg32}
+    # the f32 step reads the batch as an f32 configuration slims it
+    batch_of = {id(m16): batch,
+                id(m32): slim_batch_for_train(planned, cfg32).to(device)}
+
+    for model, dtype, tols in ((m16, "bf16", (KERNEL_TOL, DW_TOL)),
+                               (m32, "f32", (KERNEL_TOL_F32, DW_TOL))):
+        with layer_by_layer_check(*tols) as checked:
+            loss_and_grads(model, contextlib.nullcontext())
+        log(f"layer by layer, {dtype}: {checked['n']} windowed conv "
+            f"backwards re-run through the plain versions on the same "
+            f"inputs; largest dfeats max|d| / max|plain| "
+            f"{checked['dfeats']:.3g} (limit {tols[0]:.3g}), dW "
+            f"{checked['dw']:.3g} (limit {tols[1]})")
+
+    # bf16: the loss alone (the whole-step gradients are ill-conditioned,
+    # see above).  f32, under deterministic algorithms: the loss, two runs
+    # through the kernels bit for bit, and the gradients per tensor.
+    lk, _ = loss_and_grads(m16, contextlib.nullcontext())
+    lp, _ = loss_and_grads(m16, plain_versions())
+    check_loss("bf16", lk, lp, LOSS_RTOL)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        lk, gk = loss_and_grads(m32, contextlib.nullcontext())
+        _, gk2 = loss_and_grads(m32, contextlib.nullcontext())
+        lp, gp = loss_and_grads(m32, plain_versions())
+    finally:
+        torch.use_deterministic_algorithms(False)
+    check_loss("f32", lk, lp, LOSS_RTOL_F32)
+    rs = ratios(gk, gp)
+    same = all(torch.equal(gk[n], gk2[n]) for n in gk)
+    log(f"one f32 step (deterministic algorithms), ||g_kern - g_plain|| / "
+        f"||g_plain|| over {len(rs)} tensors (limit {GRAD_RTOL_F32}), "
+        f"largest: {summary(rs)}; two runs through the kernels "
+        f"bit-identical: {same}")
+    if not (rs[0][0] <= GRAD_RTOL_F32 and same):
+        raise AssertionError("f32 training gradients through the kernels "
+                             "disagree with the plain versions or are not "
+                             "reproducible")
     return launches
 
 
@@ -406,21 +782,28 @@ def main() -> int:
 
     gen = torch.Generator().manual_seed(0)
     m = cfg.pointcloud_model.m
-    rows = phase_kernels(level_case(batch.plans, 0, m, m, device, gen))
+    case = level_case(batch.plans, 0, m, m, device, gen)
+    rows = phase_kernels(case)
     deep = len(batch.plans.levels) - 2          # deepest level with a decoder
     planes = (deep + 1) * m
-    phase_wide(level_case(batch.plans, deep, 2 * planes, planes, device,
-                          gen))
+    wide = level_case(batch.plans, deep, 2 * planes, planes, device, gen)
+    phase_wide(wide)
+    rows += phase_bwd_kernels(case, wide)
+    del case, wide
     reset_sticky_plans()
-    launches = phase_main(cfg, scenes, batch.plans, batch, device)
+    val_launches = phase_main(cfg, scenes, batch.plans, batch, device)
+    train_launches = phase_train(cfg, scenes, device)
     for row in rows:
-        row["launches"] = launches[row["name"]]
-    # The kernels line lists the kernels of the main path; a kernel whose
-    # plan form the bench plans lack was checked above and is logged here.
+        row["launches"] = (val_launches[row["name"]]
+                           + train_launches[row["name"]])
+    # The kernels line lists the kernels of the main paths (validate and
+    # training, launches summed); a kernel whose plan form the bench plans
+    # lack was checked above and is logged here.
     on_path = [row for row in rows if row["launches"] > 0]
     for row in rows:
         if row["launches"] == 0:
-            log(f"not on the main path, checked above: {json.dumps(row)}")
+            log(f"not on the main paths (no flat-form plan), checked "
+                f"above: {json.dumps(row)}")
     log("all phases passed")
     print(json.dumps({"kernels": on_path}), flush=True)
     print(smi, flush=True)

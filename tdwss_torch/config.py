@@ -18,6 +18,7 @@ class PointcloudDataConfig:
     scale: int = 20                  # voxel size = 1/scale metres
     val_reps: int = 1                # multi-view voting repetitions
     batch_size: int = 16
+    elastic_deformation: bool = False
 
 
 @dataclass
@@ -56,10 +57,14 @@ class Config:
     model_name: str = "MultiLabelContrastive"
     pointcloud_data: PointcloudDataConfig = field(
         default_factory=PointcloudDataConfig)
-    label: str = "scene_level"
+    label: str = "scene_level"       # scene_level | pseudo (not ported)
+    has_text: bool = False
     pointcloud_model: PointcloudModelConfig = field(
         default_factory=PointcloudModelConfig)
     loss: LossConfig = field(default_factory=LossConfig)
+    lr: float = 1e-3
+    lr_decay_epochs: int = 100       # StepLR(step_size=100, gamma=0.1)
+    lr_decay_gamma: float = 0.1
     seed: int = 0
     engine: EngineConfig = field(default_factory=EngineConfig)
 

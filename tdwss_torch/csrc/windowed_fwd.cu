@@ -22,9 +22,10 @@
 // locals, skips a tap that no row of the block uses, gathers the BM
 // source rows of a tap KC channels at a time into shared memory, stages
 // the matching KC x BN slice of w[a], and accumulates a 4 x 4 micro-tile
-// per thread in f32 registers on the CUDA cores.  The TPU's one-hot
-// matmul, lane packing and window DMAs have no counterpart: on Hopper a
-// gather is a gather.
+// per thread in f32 registers on the CUDA cores (the block body,
+// tdwss::gather_gemm_block, lives in windowed_common.cuh: K2's dfeats
+// runs it too).  The TPU's one-hot matmul, lane packing and window DMAs
+// have no counterpart: on Hopper a gather is a gather.
 //
 // Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16 dense): the larger of
 //   bytes / 3.35e12  with bytes = distinct source rows * c * sizeof(T)
@@ -37,26 +38,14 @@
 // bound; moving the inner product to wgmma and the gathers to
 // cp.async/TMA pipelines is the work of a later change.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "windowed_common.cuh"
 
 namespace {
 
-constexpr int BM = 64;     // output rows per block
-constexpr int BN = 64;     // output columns per block
-constexpr int KC = 32;     // input channels per shared-memory stage
-constexpr int NT = 256;    // threads per block (16 x 16, 4 x 4 outputs each)
-constexpr int KMAX = 32;   // most taps a rulebook may have (27 subm, 8 cross)
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
+using tdwss::BM;
+using tdwss::BN;
+using tdwss::KMAX;
+using tdwss::NT;
 
 template <typename T, bool SUB>
 __global__ void __launch_bounds__(NT) windowed_fwd_kernel(
@@ -65,101 +54,11 @@ __global__ void __launch_bounds__(NT) windowed_fwd_kernel(
     const int32_t* __restrict__ rb, int64_t rb_stride_k, int64_t rb_stride_v,
     const T* __restrict__ w, int k, int cout, T* __restrict__ out,
     int64_t v_out, int tile, int nwin, int sub, int sentinel) {
-  __shared__ int32_t s_src[KMAX][BM];
-  __shared__ int s_used[KMAX];
-  __shared__ float s_x[BM][KC + 1];
-  __shared__ float s_w[KC][BN];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * BM;
-  const int col0 = blockIdx.y * BN;
-
-  if (tid < KMAX) s_used[tid] = 0;
-  __syncthreads();
-
-  // 1. Source row of every (tap, row) of this block; -1 reads zeros.
-  //    The traversal follows rb's memory order so the loads coalesce.
-  const bool tap_major = rb_stride_v == 1;
-  for (int e = tid; e < k * BM; e += NT) {
-    const int a = tap_major ? e / BM : e % k;
-    const int r = tap_major ? e % BM : e / k;
-    const int64_t v = row0 + r;
-    int32_t src = -1;
-    if (v < v_out) {
-      const int32_t loc = rb[a * rb_stride_k + v * rb_stride_v];
-      if (loc >= 0 && loc < sentinel) {
-        const int g = a % nwin;
-        int64_t s = static_cast<int64_t>(starts[(v / tile) * nwin + g]) + loc;
-        if (SUB) s += soff[(v / sub) * nwin + g];
-        if (s >= 0 && s < v_src) {
-          src = static_cast<int32_t>(s);
-          s_used[a] = 1;
-        }
-      }
-    }
-    s_src[a][r] = src;
-  }
-  __syncthreads();
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int a = 0; a < k; ++a) {
-    if (!s_used[a]) continue;            // uniform across the block
-    const T* wa = w + static_cast<int64_t>(a) * c * cout;
-    for (int c0 = 0; c0 < c; c0 += KC) {
-      // 2. gather BM source rows, channels [c0, c0 + KC)
-      for (int e = tid; e < BM * KC; e += NT) {
-        const int r = e / KC;
-        const int cc = e % KC;
-        const int32_t s = s_src[a][r];
-        float val = 0.f;
-        if (s >= 0 && c0 + cc < c)
-          val = to_f(x[static_cast<int64_t>(s) * c + c0 + cc]);
-        s_x[r][cc] = val;
-      }
-      // 3. stage w[a][c0 : c0 + KC, col0 : col0 + BN]
-      for (int e = tid; e < KC * BN; e += NT) {
-        const int kk = e / BN;
-        const int n = e % BN;
-        float val = 0.f;
-        if (c0 + kk < c && col0 + n < cout)
-          val = to_f(wa[static_cast<int64_t>(c0 + kk) * cout + col0 + n]);
-        s_w[kk][n] = val;
-      }
-      __syncthreads();
-      const int kmax = min(KC, c - c0);
-      for (int kk = 0; kk < kmax; ++kk) {
-        float xv[4], wv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) xv[i] = s_x[ty + 16 * i][kk];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) wv[j] = s_w[kk][tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(xv[i], wv[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-  }
-
-  // 4. one rounding to T per output element
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int64_t v = row0 + ty + 16 * i;
-    if (v >= v_out) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = col0 + tx + 16 * j;
-      if (n < cout) store(out + v * cout + n, acc[i][j]);
-    }
-  }
+  __shared__ tdwss::GemmSmem sm;
+  tdwss::gather_gemm_block<T, SUB>(
+      sm, x, v_src, c, starts, soff, rb, rb_stride_k, rb_stride_v, w, k,
+      cout, out, v_out, tile, nwin, sub, sentinel,
+      static_cast<int64_t>(blockIdx.x) * BM, blockIdx.y * BN);
 }
 
 template <typename T>

@@ -1,7 +1,9 @@
 """Fixed-capacity point batch (twin of ``tdwss.data.batch.PointBatch``).
 
-Host batches hold numpy arrays; :meth:`PointBatch.to` moves every array
-(and the plans) to a torch device.
+Host batches hold numpy arrays (and, after
+:func:`tdwss_torch.data.plans.slim_batch_for_train`, a bf16 CPU tensor of
+voxel features); :meth:`PointBatch.to` moves every array and tensor (and
+the plans) to a torch device.
 """
 
 from __future__ import annotations
@@ -51,6 +53,8 @@ class PointBatch:
             if isinstance(v, np.ndarray):
                 kw[f.name] = torch.from_numpy(
                     np.ascontiguousarray(v)).to(device)
+            elif isinstance(v, torch.Tensor):
+                kw[f.name] = v.to(device)
             elif f.name == "plans" and v is not None:
                 kw[f.name] = v.to(device)
         return dataclasses.replace(self, **kw)

@@ -1,7 +1,10 @@
-"""Fixed-shape val batch assembly (twin of ``tdwss.data.collate``).
+"""Fixed-shape batch assembly (twin of ``tdwss.data.collate``):
+``train_collate`` (trainMerge) and ``val_collate`` (valMerge).
 
 Every batch is padded to the static ``max_points`` capacity and carries
-masks; if the scenes exceed it, a uniform random subset is kept.
+masks; if the scenes exceed it, a uniform random subset is kept.  Text
+tokens and proposal boxes are not collated (the text branch is not
+ported).
 """
 
 from __future__ import annotations
@@ -12,7 +15,8 @@ import numpy as np
 
 from tdwss_torch import NUM_CLASSES
 from tdwss_torch.config import Config
-from tdwss_torch.data.augment import scene_label_from_points, val_transform
+from tdwss_torch.data.augment import (color_jitter, scene_label_from_points,
+                                      train_transform, val_transform)
 from tdwss_torch.data.batch import PointBatch
 from tdwss_torch.data.synthetic import Scene
 
@@ -34,6 +38,56 @@ def _pad_points(arrays: dict, n_actual: int, capacity: int,
     valid = np.zeros(capacity, bool)
     valid[:n_actual] = True
     return out, valid
+
+
+def train_collate(scenes: Sequence[Scene], cfg: Config,
+                  rng: np.random.Generator) -> PointBatch:
+    """trainMerge parity over a list of scenes: one augmented view per
+    scene, colour jitter, scene tags from the kept points' labels.  The
+    draws from ``rng`` are the reference's, in its order."""
+    if cfg.has_text:
+        raise NotImplementedError("the text branch is not ported yet")
+    pcd = cfg.pointcloud_data
+    full_scale = cfg.pointcloud_model.full_scale
+    use_pseudo = cfg.label == "pseudo"
+
+    coords_l, feats_l, label_l, batch_l = [], [], [], []
+    scene_labels = []
+    for idx, scene in enumerate(scenes):
+        a, keep, _ = train_transform(
+            scene.points, pcd.scale, full_scale, rng,
+            elastic_deformation=pcd.elastic_deformation)
+        a = a[keep]
+        labels = scene.labels[keep]
+        if use_pseudo:
+            if scene.pseudo_labels is None:
+                raise ValueError(f"scene {scene.name} lacks pseudo labels")
+            labels = scene.pseudo_labels[keep]
+        coords_l.append(a.astype(np.int32))      # a >= 0: floor == trunc
+        feats_l.append(color_jitter(scene.colors[keep], rng))
+        label_l.append(labels.astype(np.int32))
+        batch_l.append(np.full(a.shape[0], idx, np.int32))
+        scene_labels.append(
+            scene_label_from_points(scene.labels[keep], NUM_CLASSES))
+
+    coords3 = np.concatenate(coords_l)
+    arrays = {
+        "coords": np.concatenate(
+            [coords3, np.concatenate(batch_l)[:, None]], axis=1),
+        "feats": np.concatenate(feats_l).astype(np.float32),
+        "point_label": np.concatenate(label_l),
+    }
+    arrays, valid = _pad_points(arrays, coords3.shape[0],
+                                cfg.engine.max_points, rng)
+    return PointBatch(
+        coords=arrays["coords"],
+        feats=arrays["feats"],
+        valid=valid,
+        scene_label=np.stack(scene_labels),
+        scene_mask=np.ones(len(scenes), bool),
+        point_label=arrays["point_label"],
+        point_ids=np.full(cfg.engine.max_points, -1, np.int32),
+    )
 
 
 def val_collate(scenes: Sequence[Scene], cfg: Config,

@@ -1,12 +1,16 @@
-"""Attach host-built sparse-conv plans to a collated batch
-(twin of ``tdwss.data.plans``)."""
+"""Attach host-built sparse-conv plans to a collated batch, and slim a
+planned batch for the training step (twin of ``tdwss.data.plans``)."""
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
+import torch
 
 from tdwss_torch.config import Config
 from tdwss_torch.data.batch import PointBatch
+from tdwss_torch.models.meta_arch import model_reads
 from tdwss_torch.ops.host_plan import host_voxelize_and_plan
 
 
@@ -69,6 +73,46 @@ def slim_plans_for_device(plans):
             win=_slim_win(lvl.win),
             wg_down=_slim_win(lvl.wg_down), wg_up=_slim_win(lvl.wg_up)))
     return plans.replace(levels=tuple(new_levels))
+
+
+def slim_batch_for_train(batch: PointBatch,
+                         cfg: Optional[Config] = None) -> PointBatch:
+    """Drop the point leaves no training step reads once plans are
+    attached, as the reference does (``tdwss/data/plans.py:97-158``).
+
+    ``feats`` and ``point_ids`` become zero-row placeholders; with
+    ``cfg``, labels travel as int8 and, under bf16 compute, ``vox_feats``
+    as a bf16 CPU tensor.  ``coords`` stays only for models whose step
+    reads point coordinates, and ``point2voxel``, ``point_perm``,
+    ``point_label`` and ``valid`` only for those that read the point
+    leaves or train on pseudo labels
+    (:func:`tdwss_torch.models.meta_arch.model_reads`).
+    """
+    if batch.plans is None:
+        return batch
+    out = batch.replace(
+        feats=np.zeros((0, batch.feats.shape[1]),
+                       np.asarray(batch.feats).dtype),
+        point_ids=np.zeros((0,), np.asarray(batch.point_ids).dtype))
+    if cfg is not None:
+        out = out.replace(
+            point_label=np.asarray(batch.point_label).astype(np.int8))
+        if (cfg.engine.compute_dtype == "bfloat16"
+                and out.vox_feats is not None):
+            out = out.replace(vox_feats=torch.from_numpy(
+                np.asarray(out.vox_feats, np.float32)).to(torch.bfloat16))
+    reads_coords, reads_points = (model_reads(cfg.model_name)
+                                  if cfg is not None else (False, True))
+    if not reads_coords:
+        out = out.replace(coords=np.zeros(
+            (0, batch.coords.shape[1]), np.asarray(batch.coords).dtype))
+    if cfg is not None and cfg.label != "pseudo" and not reads_points:
+        out = out.replace(
+            point2voxel=np.zeros((0,), np.int32),
+            point_perm=np.zeros((0,), np.int32),
+            point_label=np.zeros((0,), np.asarray(out.point_label).dtype),
+            valid=np.zeros((0,), np.asarray(out.valid).dtype))
+    return out
 
 
 def attach_host_plans(batch: PointBatch, cfg: Config,

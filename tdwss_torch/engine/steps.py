@@ -1,10 +1,79 @@
-"""Eval step and vote accumulation (twin of ``tdwss.engine.steps``)."""
+"""Train step, eval step and vote accumulation (twin of
+``tdwss.engine.steps``).
+
+The training iteration of the reference (train.py:55-81): forward with
+``istrain=True`` (batch norm in train mode, its running statistics
+updated), the scene-level Classification loss, backward through the
+kernels, an Adam step and the StepLR schedule by epoch.
+"""
 
 from __future__ import annotations
 
+from typing import Callable, Dict, Tuple
+
 import torch
 
+from tdwss_torch.config import Config
 from tdwss_torch.data.batch import PointBatch
+from tdwss_torch.utils.losses import Classification
+
+
+def make_lr_schedule(cfg: Config, steps_per_epoch: int
+                     ) -> Callable[[int], float]:
+    """Learning rate at a step: Adam(1e-3) + StepLR(step_size=100 epochs,
+    gamma=0.1) parity, the epoch being ``step // steps_per_epoch``."""
+
+    def schedule(step: int) -> float:
+        epoch = step // max(steps_per_epoch, 1)
+        return cfg.lr * (cfg.lr_decay_gamma ** (epoch // cfg.lr_decay_epochs))
+
+    return schedule
+
+
+def make_optimizer(cfg: Config, model: torch.nn.Module,
+                   steps_per_epoch: int):
+    """``(torch.optim.Adam, LambdaLR)`` over the model's parameters:
+    betas (0.9, 0.999) and eps 1e-8 outside the square root, as optax's
+    ``adam``; the scheduler steps once per training step."""
+    opt = torch.optim.Adam(model.parameters(), lr=cfg.lr,
+                           betas=(0.9, 0.999), eps=1e-8)
+    schedule = make_lr_schedule(cfg, steps_per_epoch)
+    sched = torch.optim.lr_scheduler.LambdaLR(
+        opt, lambda step: schedule(step) / cfg.lr)
+    return opt, sched
+
+
+def compute_loss(cfg: Config, model, batch: PointBatch
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(loss, aux scalars) of one forward in training mode."""
+    if cfg.label == "pseudo" or (cfg.has_text and cfg.loss.TextContrastive):
+        raise NotImplementedError("the point and text losses are not "
+                                  "ported yet")
+    out, _ = model(batch, istrain=True)
+    loss = torch.zeros((), dtype=torch.float32, device=out.device)
+    aux = {}
+    if cfg.loss.Classification:
+        cls_loss = Classification(out, batch.scene_label,
+                                  mask=batch.scene_mask)
+        loss = loss + cls_loss
+        aux["cls_loss"] = cls_loss
+    aux["loss"] = loss
+    return loss, aux
+
+
+def train_step(cfg: Config, model, optimizer, scheduler, batch: PointBatch
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One optimisation step on the batch's device: forward (batch-norm
+    running statistics updated), backward, Adam update, schedule step.
+    Returns the loss and aux scalars as detached tensors, with no host
+    synchronisation."""
+    model.train()
+    optimizer.zero_grad(set_to_none=True)
+    loss, aux = compute_loss(cfg, model, batch)
+    loss.backward()
+    optimizer.step()
+    scheduler.step()
+    return loss.detach(), {k: v.detach() for k, v in aux.items()}
 
 
 @torch.no_grad()

@@ -5,8 +5,10 @@ stem SubmConv(3 -> m) -> UNet body over 7 levels (planes m..7m, concat
 skips) -> BatchNormReLU -> per-point readback.  Module and parameter
 names follow the flax modules' paths (``body.inner.enc0.conv1.kernel``),
 so :mod:`tdwss_torch.convert` maps flax variables onto this tree one to
-one.  The plans-free branch (on-device voxelization) and the training
-pooling are later slices.
+one.  With ``istrain`` the encoder returns per-scene features: the
+count-weighted mean over voxels (the reference model's mean over points,
+``tdwss/models/sparse_encoders.py:270-283``).  The plans-free branch
+(on-device voxelization) is a later slice.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from tdwss_torch.models.layers import (BatchNormReLU, Deconv,
                                        NetworkInNetwork, StridedConv,
                                        SubmConv)
 from tdwss_torch.ops.plan import LevelPlans, level_capacities
+from tdwss_torch.ops.segment import segment_mean_weighted
 from tdwss_torch.ops.voxelize import devoxelize, devoxelize_seg
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -146,18 +149,22 @@ class SparseConvUNet(nn.Module):
     def forward(self, coords, feats, valid, istrain: bool = False,
                 train: bool = False, num_scenes: int = 1, plans=None,
                 vox_feats=None, point2voxel=None, point_perm=None):
-        """Host plans + voxel features -> per-point features (f32, (N, m))."""
+        """Host plans + voxel features -> per-point features (f32, (N, m)),
+        or per-scene features (f32, (num_scenes, m)) with ``istrain``."""
         if plans is None:
             raise NotImplementedError(
                 "the plans-free branch (on-device voxelization) is not "
                 "ported; attach host plans (tdwss_torch.data.plans)")
-        if istrain:
-            raise NotImplementedError("scene pooling is the training slice")
         lvl0 = plans.levels[0]
         h = self.stem(vox_feats.to(self.compute_dtype), lvl0.subm_rb,
                       lvl0.win)
         h = self.body(h, plans, 0, train)
         h = self.final_bnrelu(h, lvl0.grid.valid, train)
+        if istrain:
+            # slim plans ship only the scene-id column of grid.coords
+            grid = lvl0.grid
+            return segment_mean_weighted(h.float(), grid.coords[:, -1],
+                                         grid.counts, num_scenes, grid.valid)
         if point_perm is not None:
             return devoxelize_seg(h.float(), point2voxel, point_perm,
                                   lvl0.grid.counts)

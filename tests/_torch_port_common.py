@@ -1,6 +1,10 @@
-"""Shared set-up of the slice tests (test_torch_port_model*.py): the
+"""Shared set-up of the slice tests (test_torch_port_*.py): the
 reference and port configurations, one planned val batch in each package,
-and seeded flax variables for MultiLabel over SparseConvUNet."""
+seeded flax variables for MultiLabel over SparseConvUNet, reference plans
+as port plan objects, and a call counter for the conv routes' kernel
+entry points."""
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -23,6 +27,7 @@ from tdwss_torch.data.dataset import val_offsets
 from tdwss_torch.data.plans import attach_host_plans
 from tdwss_torch.data.synthetic import make_dataset
 from tdwss_torch.models.meta_arch import build_model
+from tdwss_torch.ops import sparse_conv as port_sc
 from tdwss_torch.ops.host_plan import reset_sticky_plans
 
 F32_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -105,3 +110,24 @@ def _forward(setup, dtype):
     return np.asarray(ref, np.float32), out.detach().numpy()
 
 
+
+
+def port_plan_of(ref_obj, cls):
+    """A reference plan dataclass as the port's ``cls``, on the CPU."""
+    return cls(**{f.name: getattr(ref_obj, f.name)
+                  for f in dataclasses.fields(cls)}).to("cpu")
+
+
+def count_route_calls(monkeypatch, names):
+    """Wrap the named kernel entry points of the port's conv routes so
+    each call is counted (on the CPU the wrappers count no launches)."""
+    calls = {name: 0 for name in names}
+    for name in names:
+        fn = getattr(port_sc, name)
+
+        def counted(*a, _fn=fn, _name=name, **kw):
+            calls[_name] += 1
+            return _fn(*a, **kw)
+
+        monkeypatch.setattr(port_sc, name, counted)
+    return calls

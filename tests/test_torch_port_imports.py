@@ -49,7 +49,9 @@ def _run(names):
 
 def test_port_modules_import_without_jax_flax_yaml_tdwss():
     names = _modules()
-    assert "tdwss_torch.ops.windowed" in names
+    for mod in ("tdwss_torch.ops.windowed", "tdwss_torch.ops.segment",
+                "tdwss_torch.utils.losses", "tdwss_torch.engine.steps"):
+        assert mod in names
     res = _run(names)
     assert res.returncode == 0, res.stderr[-3000:]
     assert res.stdout.strip() == f"ok {len(names)}"
