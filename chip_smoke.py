@@ -11,12 +11,14 @@ SparseConvFCNetNarrow, m=16, planes 16..256, 5 levels;
 ``..._finer.yaml``: SparseConvFCNet, m=16, 7 levels), all on the bench
 batch (5 synthetic scenes of 150,000 points, ``max_points`` 786,432, in
 place of the configs' 6 scenes in 4,194,304) with seeded random weights,
-and checks them:
+and drives the experimental brick engine at the bench level 0, and
+checks them:
 
 1. device: the card's name and power limit, torch and CUDA versions;
-2. build: the kernels' three shared libraries (nvcc: forward K1/K4,
-   backward K2/K3/K5, fused subm backward K6) and the native host
-   planner (g++), compiled from the checkout in parallel, timed;
+2. build: the kernels' four shared libraries (nvcc: forward K1/K4,
+   backward K2/K3/K5, fused subm backward K6, block gather K7) and the
+   native host planner (g++), compiled from the checkout in parallel,
+   timed;
 3. kernels: K1 (windowed_matmul_sub) and K4 (windowed_matmul) at the
    bench plans' level-0 shapes against their plain PyTorch versions on
    the card, with times (CUDA events), the plain versions' times and the
@@ -43,8 +45,21 @@ and checks them:
    step's loss held against them; for the UNet also two bf16 steps'
    gradients bit for bit and the f32 step (see the tolerances below);
    the identity unpools of the Narrow batch timed per level;
-7. one JSON line with the numbers of every kernel the main paths
-   launched, the card line from ``nvidia-smi``, and the result line.
+7. brick engine (``tdwss_torch.ops.experimental``), on the level-0 grid
+   of the bench batch: with the launch counts set to 0 just before and
+   read just after, the host brick plan (timed), ``brick_subm_conv`` at
+   32 -> 32 in bf16, and the halo-face gather through ``gather_blocks``
+   (K7; the two x-faces of every occupied brick's neighbours, each one
+   (8, 8*32) bf16 block); then the brick conv against the windowed
+   ``subm_conv_apply`` (K1 route) on the same grid and weights in bf16
+   (max|d| <= 2^-7 max|windowed|) and f32 (1e-4), both timed with their
+   peak memory, and the bf16 brick conv's parts; K7 against its plain
+   version bit for bit at that shape and at the reference test's
+   (128, 8, 128) f32 with 64 indices, timed (samples of K7_WINDOW calls
+   back to back) beside ``torch.index_select`` and its bound;
+8. one JSON line with the numbers of every ported kernel (K1-K7, each
+   with its launches over the main paths and the brick path, 0
+   included), the card line from ``nvidia-smi``, and the result line.
 
 Any failure raises and the exit code is not 0.  Without CUDA, or without
 the rest of the repository beside this file, it exits non-zero and prints
@@ -125,6 +140,12 @@ TRAIN_STEPS = 3
 STEPS_PER_EPOCH = 100
 # The reference's K2 width gate (tdwss/ops/sparse_conv.py:936, :1455)
 GATHER_MAX_C = 128
+# The brick engine's width: the bench m.
+BRICK_C = 32
+# K7 takes ~0.1 ms, the same order as its wrapper's host work: each timed
+# sample of K7, its plain version and index_select is the mean of this
+# many calls back to back.
+K7_WINDOW = 10
 
 
 def log(msg: str) -> None:
@@ -205,8 +226,11 @@ def cut_to_bench_batch(cfg):
     return cfg
 
 
-def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Median milliseconds of ``fn`` over ``iters`` runs (CUDA events)."""
+def cuda_time_ms(fn, iters: int, warmup: int = 2, window: int = 1) -> float:
+    """Median milliseconds of ``fn`` over ``iters`` samples (CUDA events),
+    each the mean of ``window`` calls run back to back (more than one
+    where a call's host work is comparable to its device time, so that
+    the device does not wait on the host between launches)."""
     import torch
 
     for _ in range(warmup):
@@ -216,10 +240,11 @@ def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(window):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / window)
     return statistics.median(times)
 
 
@@ -239,6 +264,7 @@ def phase_build():
     jobs = {"forward kernels": lambda: windowed.build("fwd"),
             "backward kernels": lambda: windowed.build("bwd"),
             "fused subm backward kernel": lambda: windowed.build("bwd_sub"),
+            "block gather kernel": lambda: windowed.build("gather"),
             "planner": native.build}
     threads = [threading.Thread(target=run, args=item)
                for item in jobs.items()]
@@ -252,7 +278,7 @@ def phase_build():
     for name, (path, secs) in results.items():
         log(f"build {name}: {secs:.2f} s -> {os.path.relpath(path, HERE)}")
     for name in ("forward kernels", "backward kernels",
-                 "fused subm backward kernel"):
+                 "fused subm backward kernel", "block gather kernel"):
         with open(results[name][0] + ".log") as f:
             lines = f.read().splitlines()
         for i, ln in enumerate(lines):
@@ -307,21 +333,28 @@ def check_against_plain(name, out, ref, label, tol_rel=KERNEL_TOL):
     return err
 
 
-def kernel_row(name, source, replaces, run, plain, work, err):
-    """Time ``run`` and ``plain`` (CUDA events) and bound the work."""
-    ms = cuda_time_ms(run, iters=20)
-    plain_ms = cuda_time_ms(plain, iters=3, warmup=1)
+def kernel_row(name, source, replaces, run, plain, work, err, library=None,
+               window=1):
+    """Time ``run``, ``plain`` and, where one PyTorch call computes the
+    same function, ``library`` (CUDA events; ``window`` calls per
+    sample), and bound the work."""
+    ms = cuda_time_ms(run, iters=20, window=window)
+    plain_ms = cuda_time_ms(plain, iters=3, warmup=1, window=window)
+    library_ms = (cuda_time_ms(library, iters=20, window=window)
+                  if library else None)
     nbytes, flops = work()
     bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     bound_ops = flops / BF16_FLOPS_PER_S * 1e3
     bound_ms = max(bound_bytes, bound_ops)
-    log(f"{name}: {ms:.4f} ms (median of 20), plain {plain_ms:.3f} ms, "
+    lib = f", library {library_ms:.4f} ms" if library else ""
+    per = f" of {window} back to back" if window > 1 else ""
+    log(f"{name}: {ms:.4f} ms (median of 20{per}), plain {plain_ms:.3f} ms{lib}, "
         f"bound {bound_ms:.4f} ms ({nbytes} B, {flops} flop)")
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms,
                 bound_by="bytes" if bound_bytes >= bound_ops else "operations",
-                library_ms=None)
+                library_ms=library_ms)
 
 
 def phase_kernels(case):
@@ -956,6 +989,176 @@ def phase_unpool_times(plans, planes, device, gen):
             del x, eye
 
 
+def halo_face_index(plan):
+    """K7's index for the brick tensor viewed as (B * S, S, S * C) x-slabs:
+    for every occupied brick, the low x-face (slab 0) of its dx = +1
+    neighbour and the high x-face (slab S - 1) of its dx = -1 neighbour,
+    padded to a multiple of 32; an absent neighbour (B) and the padding
+    point past the end, where the gather clips them."""
+    import numpy as np
+
+    from tdwss_torch.ops.experimental.brick_plan import _NEIGHBOR_OFFSETS
+
+    s = plan.size
+    kept = min(plan.num_bricks, plan.neighbors.shape[0])
+    offs = [tuple(o) for o in _NEIGHBOR_OFFSETS.tolist()]
+    up = plan.neighbors[:kept, offs.index((1, 0, 0))].astype(np.int64)
+    down = plan.neighbors[:kept, offs.index((-1, 0, 0))].astype(np.int64)
+    idx = np.stack([up * s, down * s + s - 1], axis=1).reshape(-1)
+    pad = -len(idx) % 32
+    end = plan.neighbors.shape[0] * s
+    return np.concatenate([idx, np.full(pad, end)]).astype(np.int32)
+
+
+def phase_brick(batch, device, gen):
+    """The experimental brick engine on the level-0 grid of the bench
+    batch (rebuilt from its points: the collate keeps only the plans'
+    scene column).  The path (launch counts set to 0 just before and
+    read just after): the host brick plan, ``brick_subm_conv`` at
+    BRICK_C -> BRICK_C in bf16, and the halo-face gather through
+    ``gather_blocks`` (K7).  Then the checks and times: the brick conv
+    against the windowed ``subm_conv_apply`` (K1 route) in bf16 and f32,
+    and K7 against its plain version at that shape and at the reference
+    test's.  Returns (K7's row, the path's launches)."""
+    import numpy as np
+    import torch
+
+    from tdwss_torch.ops import windowed as W
+    from tdwss_torch.ops.experimental import block_gather as BG
+    from tdwss_torch.ops.experimental.brick_conv import (_fill_bricks,
+                                                         _halo_pad,
+                                                         brick_subm_conv,
+                                                         plan_to)
+    from tdwss_torch.ops.experimental.brick_plan import (build_brick_plan,
+                                                         reset_brick_caps)
+    from tdwss_torch.ops.host_plan import voxelize_np
+    from tdwss_torch.ops.sparse_conv import subm_conv_apply
+
+    level0 = batch.plans.levels[0]
+    v = level0.grid.valid.shape[0]
+    grid, _, _ = voxelize_np(batch.coords, None, batch.valid, v)
+    if not np.array_equal(np.asarray(grid.valid),
+                          np.asarray(level0.grid.valid)):
+        raise AssertionError("the rebuilt level-0 grid is not the plans'")
+    c = BRICK_C
+    x32 = torch.randn((v, c), generator=gen).to(device)
+    w = (torch.randn((27, c, c), generator=gen) * (2.0 / (27 * c)) ** 0.5
+         ).to(device)
+    x16 = x32.to(torch.bfloat16)
+
+    reset_brick_caps()
+    torch.cuda.synchronize()
+    W.reset_launches()
+    BG.reset_launches()
+    t = time.perf_counter()
+    plan = build_brick_plan(grid)
+    plan_s = time.perf_counter() - t
+    dplan = plan_to(plan, device)
+    y16 = brick_subm_conv(x16, dplan, w)
+    # (B, x, y, z, C) bricks as (B * S, S, S * C): one x-slab per block
+    src = _fill_bricks(x16, dplan).reshape(-1, plan.size, plan.size * c)
+    idx = torch.from_numpy(halo_face_index(plan)).to(device)
+    faces = BG.gather_blocks(src, idx)
+    torch.cuda.synchronize()
+    launches = {**W.launches, **BG.launches}
+    cap = plan.neighbors.shape[0]
+    kept = min(plan.num_bricks, cap)
+    nvalid = int(np.asarray(grid.valid).sum())
+    log(f"brick engine: host brick plan of level 0 (V={v}, {nvalid} valid "
+        f"voxels): {plan_s:.3f} s; {plan.num_bricks} bricks of "
+        f"{plan.size}^3, capacity {cap}, occupancy "
+        f"{nvalid / (kept * plan.size ** 3):.4f}")
+    log(f"brick engine: launches on the brick path: {launches}")
+    if launches[BG.K7] != 1 or any(n for k, n in launches.items()
+                                   if k != BG.K7):
+        raise AssertionError(f"the brick path's launches: {launches}")
+
+    lvl = level0.to(device)
+    valid = torch.from_numpy(np.asarray(grid.valid)).to(device)
+    dense = 2 * cap * plan.size ** 3 * 27 * c * c
+
+    def windowed(x):
+        return subm_conv_apply(x, lvl.subm_rb, w, win=lvl.win)
+
+    def peak_gib(fn):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (torch.cuda.max_memory_allocated() - base) / 2**30
+
+    for dtype, x, tol in ((torch.bfloat16, x16, KERNEL_TOL),
+                          (torch.float32, x32, KERNEL_TOL_F32)):
+        name = str(dtype)[6:]
+        yb, brick_gib = peak_gib(lambda: brick_subm_conv(x, dplan, w))
+        yw, win_gib = peak_gib(lambda: windowed(x))
+        if dtype == torch.bfloat16 and not torch.equal(yb, y16):
+            raise AssertionError("the brick conv is not reproducible")
+        check_against_plain("brick_subm_conv vs windowed subm_conv_apply",
+                            yb[valid], yw[valid],
+                            f"level 0, {nvalid} valid rows, {c}->{c} {name}",
+                            tol)
+        if yb[~valid].any():
+            raise AssertionError("the brick conv wrote an invalid row")
+        brick_ms = cuda_time_ms(lambda: brick_subm_conv(x, dplan, w), 20)
+        win_ms = cuda_time_ms(lambda: windowed(x), 20)
+        log(f"brick engine, {name}: brick_subm_conv {brick_ms:.4f} ms "
+            f"(median of 20; dense conv3d work {dense} flop, "
+            f"{dense / brick_ms / 1e9:.1f} TFLOP/s over the whole call), "
+            f"peak memory above its inputs {brick_gib:.3f} GiB; windowed "
+            f"subm_conv_apply (K1 + spill tiers) {win_ms:.4f} ms, "
+            f"{win_gib:.3f} GiB")
+        del yb, yw
+    # where the bf16 brick conv's time goes
+    bricks = _fill_bricks(x16, dplan)
+    padded = _halo_pad(bricks, dplan.neighbors)
+    kernel = w.reshape(3, 3, 3, c, c).permute(4, 3, 0, 1, 2).to(x16.dtype)
+    parts = {
+        "fill": lambda: _fill_bricks(x16, dplan),
+        "halo": lambda: _halo_pad(bricks, dplan.neighbors),
+        "conv3d": lambda: torch.nn.functional.conv3d(
+            padded.permute(0, 4, 1, 2, 3), kernel)}
+    log("brick engine, bfloat16, parts (median of 5): " + ", ".join(
+        f"{k} {cuda_time_ms(fn, 5):.4f} ms" for k, fn in parts.items()))
+    del bricks, padded
+
+    # K7 against its plain version, bit for bit, at the reference test's
+    # shape and at the halo-face gather; timed beside index_select
+    rows = []
+    small = torch.randn((128, 8, 128), generator=gen).to(device)
+    sidx = torch.randint(-5, 133, (64,), generator=gen, dtype=torch.int32)
+    sidx[:4] = torch.tensor([-1, 128, -7, 131], dtype=torch.int32)
+    sidx = sidx.to(device)
+    for label, s, i, run in (
+            ("src (128, 8, 128) f32, M=64 (the reference test's shape)",
+             small, sidx, lambda: BG.dma_block_gather(small, sidx)),
+            (f"halo faces: src {tuple(src.shape)} bf16 "
+             f"({src[0].numel() * src.element_size()} B blocks), "
+             f"M={idx.shape[0]}", src, idx,
+             lambda: BG.gather_blocks(src, idx))):
+        out, ref = run(), BG.dma_block_gather_plain(s, i)
+        torch.cuda.synchronize()
+        if not torch.equal(out, ref):
+            raise AssertionError(f"K7 disagrees with its plain version at "
+                                 f"{label}")
+        log(f"{BG.K7}: {label}: equal to its plain version bit for bit")
+        clipped = i.long().clamp(0, s.shape[0] - 1)
+        rows.append(kernel_row(
+            BG.K7, "tdwss_torch/csrc/block_gather.cu",
+            "tdwss/ops/experimental/pallas_gather.py:59", run,
+            lambda s=s, i=i: BG.dma_block_gather_plain(s, i),
+            lambda s=s, i=i: BG.work(s, i), 0.0,
+            library=lambda s=s, clipped=clipped: torch.index_select(
+                s, 0, clipped), window=K7_WINDOW))
+    if not torch.equal(faces, BG.dma_block_gather_plain(src, idx)):
+        raise AssertionError("the brick path's halo-face gather differs "
+                             "from the plain version")
+    log(f"{BG.K7} at the reference test's shape (logged only): "
+        f"{json.dumps(rows[0])}")
+    return rows[1], launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "tdwss_torch")):
         print("chip_smoke.py: the tdwss_torch package is not beside this "
@@ -1043,20 +1246,16 @@ def main() -> int:
     paths["FCNet"] = phase_train("FCNet", fcnet_cfg, *fcnet_batch, device,
                                  1, full_checks=False)
     del fcnet_batch
+    k7_row, paths["brick"] = phase_brick(batch, device, gen)
+    rows.append(k7_row)
+    # The kernels line lists every ported kernel with its launches summed
+    # over the paths (0 for K4 and K5: no plan of any path is flat-form).
     for row in rows:
-        row["launches"] = sum(p[row["name"]] for p in paths.values())
+        row["launches"] = sum(p.get(row["name"], 0) for p in paths.values())
     for name, launches in paths.items():
         log(f"launches on the {name} path: {launches}")
-    # The kernels line lists the kernels of the main paths (validate and
-    # the three training paths, launches summed); a kernel whose plan form
-    # the plans lack was checked above and is logged here.
-    on_path = [row for row in rows if row["launches"] > 0]
-    for row in rows:
-        if row["launches"] == 0:
-            log(f"not on the main paths (no flat-form plan), checked "
-                f"above: {json.dumps(row)}")
     log("all phases passed")
-    print(json.dumps({"kernels": on_path}), flush=True)
+    print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -44,11 +44,12 @@ _RES_TILE = 512       # must match tdwss_torch.ops.host_plan._RES_TILE
 
 
 def _gather_rows(feats: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """feats[idx] with out-of-range (incl. negative) ids reading zeros."""
+    """feats[idx] along dim 0 with out-of-range (incl. negative) ids
+    reading zeros (``jnp.take(..., mode="fill", fill_value=0)``)."""
     n = feats.shape[0]
     ok = (idx >= 0) & (idx < n)
     g = feats[torch.where(ok, idx, torch.zeros_like(idx)).long()]
-    return g * ok.unsqueeze(-1).to(g.dtype)
+    return g * ok.reshape(ok.shape + (1,) * (g.dim() - ok.dim())).to(g.dtype)
 
 
 def _gather_matmul_impl(feats: torch.Tensor, rulebook: torch.Tensor,

@@ -30,7 +30,10 @@ A CUDA tensor launches the kernels in ``tdwss_torch/csrc/`` (K1/K4 in
 at first use into ``build/tdwss_torch/`` and bound with ctypes); a CPU
 tensor takes the plain PyTorch version beside each.  There is no
 fallback from a kernel to its plain version on the card.  ``launches``
-counts kernel launches per kernel name.
+counts kernel launches per kernel name.  ``build`` also compiles the
+brick engine's block gather K7 (``block_gather.cu``, part ``"gather"``;
+its wrapper and count are in ``tdwss_torch/ops/experimental/
+block_gather.py``).
 """
 
 from __future__ import annotations
@@ -50,7 +53,8 @@ _REPO_ROOT = os.path.dirname(_PKG_DIR)
 _CSRC = os.path.join(_PKG_DIR, "csrc")
 SOURCES = {"fwd": os.path.join(_CSRC, "windowed_fwd.cu"),
            "bwd": os.path.join(_CSRC, "windowed_bwd.cu"),
-           "bwd_sub": os.path.join(_CSRC, "windowed_bwd_sub.cu")}
+           "bwd_sub": os.path.join(_CSRC, "windowed_bwd_sub.cu"),
+           "gather": os.path.join(_CSRC, "block_gather.cu")}
 HEADER = os.path.join(_CSRC, "windowed_common.cuh")
 BUILD_DIR = os.path.join(_REPO_ROOT, "build", "tdwss_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -112,10 +116,15 @@ _ARGTYPES = {
         _I64, _I, _I, _I, _I,    # v_out, tile, nwin, sub, sentinel
         _I, _P, _P, _I, _P,      # nchunk, part, dw, dtype, stream
     ],
+    "tdwss_block_gather": [
+        _P, _I64, _I64,          # src, n, row_bytes
+        _P, _I64, _P, _I, _P,    # idx, m, out, vec_bytes, stream
+    ],
 }
 _FUNCS = {"fwd": ("tdwss_windowed_fwd",),
           "bwd": ("tdwss_windowed_dw", "tdwss_windowed_bwd_gather"),
-          "bwd_sub": ("tdwss_windowed_bwd_sub",)}
+          "bwd_sub": ("tdwss_windowed_bwd_sub",),
+          "gather": ("tdwss_block_gather",)}
 
 
 def reset_launches() -> None:
@@ -134,19 +143,20 @@ def _nvcc() -> str:
 
 
 def lib_path(part: str = "fwd") -> str:
-    """Path of the built library of ``part`` ("fwd", "bwd" or
-    "bwd_sub"), hashed by
-    its source, the shared header and the flags."""
+    """Path of the built library of ``part`` (a key of ``SOURCES``),
+    named after its source and hashed by the source, the shared header
+    and the flags."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for path in (SOURCES[part], HEADER):
         with open(path, "rb") as f:
             digest.update(f.read())
+    stem = os.path.splitext(os.path.basename(SOURCES[part]))[0]
     return os.path.join(BUILD_DIR,
-                        f"libwindowed_{part}-{digest.hexdigest()[:12]}.so")
+                        f"lib{stem}-{digest.hexdigest()[:12]}.so")
 
 
 def build(part: str = "fwd") -> str:
-    """Compile ``windowed_<part>.cu`` if its hashed .so is missing; returns
+    """Compile the source of ``part`` if its hashed .so is missing; returns
     the path.  ``ptxas`` register and shared-memory use goes to ``.log``."""
     path = lib_path(part)
     if os.path.exists(path):

@@ -52,7 +52,10 @@ def test_port_modules_import_without_jax_flax_yaml_tdwss():
     for mod in ("tdwss_torch.ops.windowed", "tdwss_torch.ops.segment",
                 "tdwss_torch.utils.losses", "tdwss_torch.engine.steps",
                 "tdwss_torch.ops.plan", "tdwss_torch.models.sparse_encoders",
-                "tdwss_torch.tools.step_grads"):
+                "tdwss_torch.tools.step_grads",
+                "tdwss_torch.ops.experimental.brick_plan",
+                "tdwss_torch.ops.experimental.brick_conv",
+                "tdwss_torch.ops.experimental.block_gather"):
         assert mod in names
     res = _run(names)
     assert res.returncode == 0, res.stderr[-3000:]
