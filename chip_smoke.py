@@ -31,33 +31,46 @@ checks them:
    Narrow's widest level, in bf16 and f32, bit for bit twice, timed;
 5. validation: ``validate`` (2 vote repetitions) with the launch counts
    set to 0 just before and read just after, equal to what the plans
-   route to each kernel; the per-point logits of a full forward, bit for
-   bit over two forwards, and held against the same forward through the
-   plain versions on the card;
+   route to each kernel, every K1/K4 launch on the tensor-core body (the
+   per-body counts); each kernel's device time in one rep's forward
+   (CUDA events around each kernel wrapper call); the per-point logits
+   of a full forward, bit for bit over two forwards, and held against the
+   same forward through the plain versions on the card;
 6. training, per path (UNet 3 steps, Narrow 3 steps, FCNet 1 step): one
    batch through ``train_collate`` -> ``attach_host_plans`` ->
    ``slim_batch_for_train`` (host, timed), then ``train_step``s (forward
    with batch norm in train mode, scene pooling, Classification loss,
    backward through the kernels, Adam) with the launch counts set to 0
-   just before and read just after, equal to the plans' routing; the
-   loss is finite and every parameter moves; every windowed backward
-   and unpool of one step re-run through the plain versions, and the
-   step's loss held against them; for the UNet also two bf16 steps'
-   gradients bit for bit and the f32 step (see the tolerances below);
-   the identity unpools of the Narrow batch timed per level;
-7. brick engine (``tdwss_torch.ops.experimental``), on the level-0 grid
+   just before and read just after, equal to the plans' routing, and
+   every K1/K4 launch on the tensor-core body; the loss is finite and
+   every parameter moves; each kernel's device time in one more (warm)
+   step; every windowed backward and unpool of one step re-run through
+   the plain versions, and the step's loss held against them; for the
+   UNet also two bf16 steps' gradients bit for bit and the f32 step (see
+   the tolerances below); the identity unpools of the Narrow batch timed
+   per level;
+7. forward sweep: K1 at every distinct (form, C, Cout, K) that the paths
+   of 5-6 launched, on their own windows, and at a ragged synthetic plan
+   (V_out not a multiple of 64, Cout not a multiple of 8, rb in the
+   (K, V_out) layout, a row block of sentinels), against its plain
+   version in bf16 and f32, each launch on the body its dtype selects;
+   K4 on the same windows in the flat form bit for bit equal to K1 in
+   bf16; one line per shape with its bf16 time and the bound;
+8. brick engine (``tdwss_torch.ops.experimental``), on the level-0 grid
    of the bench batch: with the launch counts set to 0 just before and
    read just after, the host brick plan (timed), ``brick_subm_conv`` at
    32 -> 32 in bf16, and the halo-face gather through ``gather_blocks``
-   (K7; the two x-faces of every occupied brick's neighbours, each one
-   (8, 8*32) bf16 block); then the brick conv against the windowed
-   ``subm_conv_apply`` (K1 route) on the same grid and weights in bf16
-   (max|d| <= 2^-7 max|windowed|) and f32 (1e-4), both timed with their
-   peak memory, and the bf16 brick conv's parts; K7 against its plain
-   version bit for bit at that shape and at the reference test's
-   (128, 8, 128) f32 with 64 indices, timed (samples of K7_WINDOW calls
-   back to back) beside ``torch.index_select`` and its bound;
-8. one JSON line with the numbers of every ported kernel (K1-K7, each
+   (K7; the two x-faces of every
+   occupied brick's neighbours, each one (8, 8*32) bf16 block); then the
+   brick conv against the windowed ``subm_conv_apply`` (K1 route) on the
+   same grid and weights in bf16 (max|d| <= 2^-7 max|windowed|) and f32
+   (1e-4), both timed with their peak memory, and the bf16 brick conv's
+   parts; K7 against its plain version bit for bit at that shape and at
+   the reference test's (128, 8, 128) f32 with 64 indices, timed
+   (samples of BACK_TO_BACK calls back to back) beside
+   ``torch.index_select`` and its bound, and at 30-byte rows (2-byte
+   copies), bit for bit;
+9. one JSON line with the numbers of every ported kernel (K1-K7, each
    with its launches over the main paths and the brick path, 0
    included), the card line from ``nvidia-smi``, and the result line.
 
@@ -142,10 +155,11 @@ STEPS_PER_EPOCH = 100
 GATHER_MAX_C = 128
 # The brick engine's width: the bench m.
 BRICK_C = 32
-# K7 takes ~0.1 ms, the same order as its wrapper's host work: each timed
-# sample of K7, its plain version and index_select is the mean of this
-# many calls back to back.
-K7_WINDOW = 10
+# K7 and K1/K4 take 0.1-1 ms, the same order as their wrappers' host
+# work: each timed sample of them, their plain versions and the library
+# call, and each bf16 time of the forward sweep, is the mean of this many
+# calls back to back, so that the device does not wait on the host.
+BACK_TO_BACK = 10
 
 
 def log(msg: str) -> None:
@@ -398,7 +412,7 @@ def phase_kernels(case):
         outs[kern["name"]] = out
         rows.append(kernel_row(kern["name"], kern["source"],
                                kern["replaces"], kern["run"], kern["plain"],
-                               kern["work"], err))
+                               kern["work"], err, window=BACK_TO_BACK))
     same = (outs[W.K1].float() - outs[W.K4].float()).abs().max().item()
     log(f"K1 (sub form) vs K4 (flat form) on the same level-0 windows: "
         f"max|d| = {same}")
@@ -572,6 +586,20 @@ def phase_k6(cases):
     return rows[0]
 
 
+def check_fwd_bodies(label):
+    """Every K1 / K4 launch counted since the last reset went to the
+    tensor-core body (the counted paths run in bf16)."""
+    from tdwss_torch.ops import windowed as W
+
+    bodies = dict(W.body_launches)
+    log(f"{label}: K1/K4 launches per body: {bodies}")
+    for name in (W.K1, W.K4):
+        if (bodies[f"{name}:{W.BODY_FMA}"]
+                or bodies[f"{name}:{W.BODY_MMA}"] != W.launches[name]):
+            raise AssertionError(f"{label}: a bf16 {name} launch did not take "
+                                 f"the tensor-core body: {bodies}")
+
+
 def expected_launches(model, plans, train: bool, reps: int = 1):
     """Kernel launches the plans route ``reps`` forwards (and, with
     ``train``, backwards) to, per kernel, from each windowed conv's plan
@@ -636,23 +664,104 @@ def expected_launches(model, plans, train: bool, reps: int = 1):
         body, i = body.inner, i + 1
 
 
-@contextlib.contextmanager
-def plain_versions():
-    """Route the model's windowed evaluations, forward and backward,
-    through the plain versions (for the comparison runs only)."""
-    from tdwss_torch.ops import sparse_conv
-    from tdwss_torch.ops import windowed as W
+# The kernel entry points the model's routes call (tdwss_torch.ops.
+# sparse_conv's names, which are also the kernels' names K1-K6).
+KERNEL_ENTRIES = ("windowed_matmul_sub", "windowed_matmul",
+                  "windowed_bwd_gather", "windowed_dw_sub", "windowed_dw",
+                  "windowed_bwd_sub")
 
-    names = ("windowed_matmul_sub", "windowed_matmul", "windowed_bwd_gather",
-             "windowed_dw_sub", "windowed_dw", "windowed_bwd_sub")
+
+@contextlib.contextmanager
+def patched_entries(names, make):
+    """Replace each of ``names`` in tdwss_torch.ops.sparse_conv by
+    ``make(name, current)`` for the enclosed block."""
+    from tdwss_torch.ops import sparse_conv
+
     saved = {n: getattr(sparse_conv, n) for n in names}
-    for n in names:
-        setattr(sparse_conv, n, getattr(W, n + "_plain"))
+    for n, fn in saved.items():
+        setattr(sparse_conv, n, make(n, fn))
     try:
         yield
     finally:
         for n, fn in saved.items():
             setattr(sparse_conv, n, fn)
+
+
+SPLITS = {}
+
+
+def kernel_split(label, fn):
+    """Device time of ``fn`` (CUDA events around it) and of each kernel
+    wrapper call it makes (CUDA events around each call of a
+    KERNEL_ENTRIES function; the wrapper's own casts and copies are
+    inside, and so is any time the device waits on the wrapper's host
+    work): logs each kernel's summed ms and calls against the whole and
+    returns {name: [ms, calls]} with the whole under "device"."""
+    import torch
+
+    pairs = {n: [] for n in KERNEL_ENTRIES}
+
+    def make(name, fn):
+        def timed(*args, **kwargs):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = fn(*args, **kwargs)
+            ev[1].record()
+            pairs[name].append(ev)
+            return out
+        return timed
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with patched_entries(KERNEL_ENTRIES, make):
+        start.record()
+        fn()
+        end.record()
+    end.synchronize()
+    total = start.elapsed_time(end)
+    split = {n: [sum(a.elapsed_time(b) for a, b in evs), len(evs)]
+             for n, evs in pairs.items()}
+    kern = sum(ms for ms, _ in split.values())
+    log(f"device time split, {label}: {total:.3f} ms in all (CUDA events); "
+        f"kernel wrapper calls {kern:.3f} ms ({kern / total:.1%}): " +
+        ", ".join(f"{n} {ms:.3f} ms / {calls} calls ({ms / total:.1%})"
+                  for n, (ms, calls) in split.items() if calls))
+    split["device"] = [total, 1]
+    SPLITS[label] = split
+    return split
+
+
+@contextlib.contextmanager
+def record_fwd_shapes(shapes):
+    """Record, for each distinct (form, C, Cout, K) that the enclosed run
+    sends to K1 or K4, the arguments of its first call (plan tensors kept,
+    features and weights by shape only) into ``shapes``."""
+    def make(name, fn):
+        def recorded(feats3, starts, *rest, **kwargs):
+            if name == "windowed_matmul_sub":
+                soff, rb_t, w = rest[:3]
+            else:
+                soff, (rb_t, w) = None, rest[:2]
+            key = (name, feats3.shape[1], w.shape[2], w.shape[0])
+            if key not in shapes:
+                shapes[key] = dict(v_src=feats3.shape[0], starts=starts,
+                                   soff=soff, rb_t=rb_t, kwargs=kwargs)
+            return fn(feats3, starts, *rest, **kwargs)
+        return recorded
+
+    with patched_entries(("windowed_matmul_sub", "windowed_matmul"), make):
+        yield shapes
+
+
+def plain_versions():
+    """Route the model's windowed evaluations, forward and backward,
+    through the plain versions (for the comparison runs only)."""
+    from tdwss_torch.ops import windowed as W
+
+    return patched_entries(KERNEL_ENTRIES,
+                           lambda n, fn: getattr(W, n + "_plain"))
 
 
 @contextlib.contextmanager
@@ -730,6 +839,7 @@ def phase_main(cfg, scenes, plans_rep1, batch_rep1, device):
     ious = validate(cfg, model, scenes, reps=VAL_REPS, verbose=False,
                     device=device, timings=timings)
     launches = dict(W.launches)
+    check_fwd_bodies("validate")
     for t, miou in zip(timings, ious):
         log(f"validate rep {t['rep']}: host planning {t['plan_s']:.3f} s, "
             f"device forward+votes {t['device_s']:.3f} s, mIoU {miou:.6f}")
@@ -744,6 +854,8 @@ def phase_main(cfg, scenes, plans_rep1, batch_rep1, device):
                              f"routing: {launches} vs {want}")
 
     b = batch_rep1.to(device)
+    kernel_split("validate: one rep's forward (eval_step on the rep-1 "
+                 "batch)", lambda: eval_step(model, b))
     logits = eval_step(model, b)
     again = eval_step(model, b)
     with plain_versions():
@@ -833,6 +945,7 @@ def phase_train(label, cfg, planned, host, host_s, device, steps,
         step_s.append(time.perf_counter() - t)
         losses.append(loss)
     launches = dict(W.launches)
+    check_fwd_bodies(label)
     peak = torch.cuda.max_memory_allocated() / 2**30
     losses = [float(x) for x in losses]
     for i, (x, sec) in enumerate(zip(losses, step_s)):
@@ -856,6 +969,8 @@ def phase_train(label, cfg, planned, host, host_s, device, steps,
                              f"{unmoved}")
     log(f"{label}: all {len(before)} parameter tensors moved over {steps} "
         f"steps")
+    kernel_split(f"{label}: one warm training step",
+                 lambda: train_step(cfg, model, opt, sched, batch))
     del model, opt, sched, before
 
     def loss_and_grads(model, c, b, ctx=contextlib.nullcontext()):
@@ -987,6 +1102,113 @@ def phase_unpool_times(plans, planes, device, gen):
                 f"(median of 5), bound {bound * 1e3:.4f} ms ({work[0]} B, "
                 f"{work[1]} live flop)")
             del x, eye
+
+
+def ragged_case(device, gen):
+    """A sub-form plan no path builds, for the edges of K1's tiling:
+    V_out = 1,000 (not a multiple of 64) in tiles of 40 rows, sub-windows
+    of 8 rows, C = 24 (a part-filled channel chunk), Cout = 36 (not a
+    multiple of 8), rb as a contiguous (K, V_out) array (the Pallas
+    layout), its first 64 rows all sentinels, and sources past both ends
+    of x."""
+    import torch
+
+    v_out, v_src, k, tile, sub, window, subwin = 1000, 1200, 27, 40, 8, 64, 16
+    starts = torch.randint(-8, v_src - 32, (v_out // tile,), generator=gen,
+                           dtype=torch.int32)
+    soff = torch.randint(0, window - subwin + 1, (v_out // sub,),
+                         generator=gen, dtype=torch.int32)
+    rb = torch.randint(0, subwin + 1, (k, v_out), generator=gen,
+                       dtype=torch.int32)
+    rb[:, :64] = subwin
+    return (("windowed_matmul_sub", 24, 36, k),
+            dict(v_src=v_src, starts=starts.to(device), soff=soff.to(device),
+                 rb_t=rb.to(device),
+                 kwargs=dict(window=window, tile=tile, sub=sub,
+                             subwin=subwin)))
+
+
+def flat_locals(a, k):
+    """The sub-form locals of a recorded K1 call as flat-form (K4) locals
+    on the same windows: rb + the row's sub-window offset, a sentinel as
+    ``window``; (K, V_out) like ``a["rb_t"]``."""
+    import torch
+
+    kw = a["kwargs"]
+    rb = a["rb_t"]
+    v_out = rb.shape[1]
+    nwin = a["starts"].numel() // (v_out // kw["tile"])
+    g = torch.arange(k, device=rb.device) % nwin
+    big = a["soff"].reshape(-1, nwin).repeat_interleave(kw["sub"], dim=0)
+    big = big[:, g].t()
+    dead = (rb < 0) | (rb >= kw["subwin"])
+    return torch.where(dead, torch.full_like(rb, kw["window"]),
+                       rb + big).to(torch.int32).contiguous()
+
+
+def phase_fwd_sweep(shapes, device, gen):
+    """K1 / K4 at every distinct (form, C, Cout, K) of ``shapes`` (what the
+    paths sent them, on the paths' own windows) and at ``ragged_case``,
+    on seeded random features and weights, against the plain versions in
+    bf16 (KERNEL_TOL) and f32 (KERNEL_TOL_F32), each launch on the body
+    its dtype selects (bf16: the tensor cores); K4 on the same windows in
+    the flat form bit for bit equal to K1 in bf16; one line per shape
+    with the bf16 time (CUDA events) and the bound."""
+    import torch
+
+    from tdwss_torch.ops import windowed as W
+
+    cases = sorted(shapes.items(), key=lambda kv: kv[0])
+    cases.append(ragged_case(device, gen))
+    for (name, c, cout, k), a in cases:
+        sub = name == W.K1
+        fn = getattr(W, name)
+        plain = getattr(W, name + "_plain")
+        kw = a["kwargs"]
+        plan = ((a["starts"], a["soff"], a["rb_t"]) if sub
+                else (a["starts"], a["rb_t"]))
+        x = torch.randn((a["v_src"], c), generator=gen).to(device)
+        w = (torch.randn((k, c, cout), generator=gen)
+             * (2.0 / (k * c)) ** 0.5).to(device)
+        v_out = a["rb_t"].shape[1]
+        label = (f"{'sub' if sub else 'flat'} V_src={a['v_src']} "
+                 f"V_out={v_out} C={c} Cout={cout} K={k}")
+        for dtype, tol in ((torch.bfloat16, KERNEL_TOL),
+                           (torch.float32, KERNEL_TOL_F32)):
+            xd, wd = x.to(dtype), w.to(dtype)
+            body = W.fwd_tile(c, cout, k, dtype)["body"]
+            before = W.body_launches[f"{name}:{body}"]
+            out, ref = fn(xd, *plan, wd, **kw), plain(xd, *plan, wd, **kw)
+            torch.cuda.synchronize()
+            if W.body_launches[f"{name}:{body}"] != before + 1 or (
+                    dtype == torch.bfloat16 and body != W.BODY_MMA):
+                raise AssertionError(f"sweep {label}: {dtype} did not take "
+                                     f"its body")
+            check_against_plain(name, out, ref, f"sweep {label} "
+                                f"{str(dtype)[6:]}", tol)
+            if sub and dtype == torch.bfloat16:
+                # K4 on the same windows in the flat form: the same bits
+                flat = W.windowed_matmul(xd, a["starts"],
+                                         flat_locals(a, k), wd,
+                                         kw["window"], kw["tile"])
+                if not torch.equal(flat, out):
+                    raise AssertionError(f"sweep {label}: K4 differs from K1 "
+                                         "on the same windows")
+                del flat
+            del out, ref
+        x16, w16 = x.to(torch.bfloat16), w.to(torch.bfloat16)
+        ms = cuda_time_ms(lambda: fn(x16, *plan, w16, **kw), iters=5,
+                          warmup=1, window=BACK_TO_BACK)
+        sentinel = kw["subwin"] if sub else kw["window"]
+        nbytes, flops = W.work(
+            x16, a["starts"], a["soff"] if sub else None, a["rb_t"], w16,
+            kw["tile"], kw.get("sub", 0), sentinel)
+        bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S) * 1e3
+        log(f"sweep {name}: {label}: bf16 {ms:.4f} ms (median of 5 of "
+            f"{BACK_TO_BACK} back to back), bound {bound:.4f} ms ({nbytes} B, "
+            f"{flops} flop)")
+        del x, w, x16, w16
+    return len(cases)
 
 
 def halo_face_index(plan):
@@ -1150,10 +1372,24 @@ def phase_brick(batch, device, gen):
             lambda s=s, i=i: BG.dma_block_gather_plain(s, i),
             lambda s=s, i=i: BG.work(s, i), 0.0,
             library=lambda s=s, clipped=clipped: torch.index_select(
-                s, 0, clipped), window=K7_WINDOW))
+                s, 0, clipped), window=BACK_TO_BACK))
     if not torch.equal(faces, BG.dma_block_gather_plain(src, idx)):
         raise AssertionError("the brick path's halo-face gather differs "
                              "from the plain version")
+    # rows of 30 bytes (not a multiple of 16): 2-byte copies
+    odd = torch.randn((1000, 5, 3), generator=gen).to(device, torch.bfloat16)
+    oidx = torch.randint(-5, 1005, (4096,), generator=gen,
+                         dtype=torch.int32).to(device)
+    BG.reset_launches()
+    out = BG.gather_blocks(odd, oidx)
+    ref = torch.index_select(odd, 0, oidx.long().clamp(0, odd.shape[0] - 1))
+    torch.cuda.synchronize()
+    log(f"{BG.K7}: src (1000, 5, 3) bf16 (30 B rows), M=4096: launches "
+        f"{BG.launches}, equal to index_select on the clipped index: "
+        f"{torch.equal(out, ref)}")
+    if BG.launches[BG.K7] != 1 or not torch.equal(out, ref):
+        raise AssertionError("K7 at 30-byte rows was not launched or "
+                             "differs from index_select")
     log(f"{BG.K7} at the reference test's shape (logged only): "
         f"{json.dumps(rows[0])}")
     return rows[1], launches
@@ -1232,20 +1468,25 @@ def main() -> int:
     del wide, narrow_wide
 
     reset_sticky_plans()
-    val_launches = phase_main(cfg, scenes, batch.plans, batch, device)
-    unet_batch = plan_train_batch(cfg, scenes, "UNet")
-    paths = {"validate": val_launches,
-             "UNet": phase_train("UNet", cfg, *unet_batch, device,
-                                 TRAIN_STEPS, full_checks=True)}
-    del unet_batch
-    paths["Narrow"] = phase_train("Narrow", narrow_cfg, *narrow_batch, device,
-                                  TRAIN_STEPS, full_checks=False)
-    phase_unpool_times(narrow_batch[1].plans, n_planes, device, gen)
-    del narrow_batch
-    fcnet_batch = plan_train_batch(fcnet_cfg, scenes, "FCNet")
-    paths["FCNet"] = phase_train("FCNet", fcnet_cfg, *fcnet_batch, device,
-                                 1, full_checks=False)
-    del fcnet_batch
+    shapes = {}
+    with record_fwd_shapes(shapes):
+        val_launches = phase_main(cfg, scenes, batch.plans, batch, device)
+        unet_batch = plan_train_batch(cfg, scenes, "UNet")
+        paths = {"validate": val_launches,
+                 "UNet": phase_train("UNet", cfg, *unet_batch, device,
+                                     TRAIN_STEPS, full_checks=True)}
+        del unet_batch
+        paths["Narrow"] = phase_train("Narrow", narrow_cfg, *narrow_batch,
+                                      device, TRAIN_STEPS, full_checks=False)
+        phase_unpool_times(narrow_batch[1].plans, n_planes, device, gen)
+        del narrow_batch
+        fcnet_batch = plan_train_batch(fcnet_cfg, scenes, "FCNet")
+        paths["FCNet"] = phase_train("FCNet", fcnet_cfg, *fcnet_batch,
+                                     device, 1, full_checks=False)
+        del fcnet_batch
+    n = phase_fwd_sweep(shapes, device, gen)
+    log(f"forward sweep: {n} shapes held against the plain versions")
+    del shapes
     k7_row, paths["brick"] = phase_brick(batch, device, gen)
     rows.append(k7_row)
     # The kernels line lists every ported kernel with its launches summed
@@ -1254,6 +1495,7 @@ def main() -> int:
         row["launches"] = sum(p.get(row["name"], 0) for p in paths.values())
     for name, launches in paths.items():
         log(f"launches on the {name} path: {launches}")
+    log(f"device time split per path: {json.dumps(SPLITS)}")
     log("all phases passed")
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

@@ -24,8 +24,11 @@ nothing.  Every product accumulates in f32.  The TPU lane padding
 (``pad_w9``, the ``C3p`` axis) and lane packing are dropped: weights are
 ``(K, C, Cout)`` and dW comes back as ``(K, C, Cout)``.
 
-A CUDA tensor launches the kernels in ``tdwss_torch/csrc/`` (K1/K4 in
-``windowed_fwd.cu``, K2/K3/K5 in ``windowed_bwd.cu``, K6 in
+K1/K4 have two bodies, chosen by the dtype (:func:`fwd_tile`): bf16 runs
+on the tensor cores, f32 on the CUDA cores; ``body_launches`` counts
+their launches per body.  A CUDA tensor launches the kernels in
+``tdwss_torch/csrc/`` (K1/K4 in ``windowed_fwd.cu``, K2/K3/K5 in
+``windowed_bwd.cu``, K6 in
 ``windowed_bwd_sub.cu``; built with ``nvcc``
 at first use into ``build/tdwss_torch/`` and bound with ctypes); a CPU
 tensor takes the plain PyTorch version beside each.  There is no
@@ -70,6 +73,15 @@ K6 = "windowed_bwd_sub"
 # libraries report theirs, and the forward launch checks against it).
 KMAX = 32
 launches: Dict[str, int] = {K1: 0, K2: 0, K3: 0, K4: 0, K5: 0, K6: 0}
+# The forward's two bodies (csrc/windowed_fwd.cu): bf16 runs on the tensor
+# cores (cp.async gathers, mma.sync), f32 on the CUDA cores.  K1 and K4
+# launches are also counted per body, "<kernel>:<body>".
+BODY_MMA, BODY_FMA = "mma", "fma"
+body_launches: Dict[str, int] = {f"{k}:{b}": 0 for k in (K1, K4)
+                                 for b in (BODY_MMA, BODY_FMA)}
+# The tensor-core body's column tiles (windowed_fwd.cu derives the rest of
+# its tiling from the tile).
+_MMA_TILES = (32, 64, 128, 256)
 
 # dW partials: one block per (row chunk, C tile, Cout tile); enough
 # chunks for ~4 blocks per SM of an H100 (132 SMs), at least 256 rows a
@@ -93,7 +105,15 @@ _ARGTYPES = {
         _P, _P, _P, _I64, _I64,  # starts, soff, rb, rb strides
         _P, _I, _I,              # w, k, cout
         _P, _I64,                # out, v_out
-        _I, _I, _I, _I, _I, _P,  # tile, nwin, sub, sentinel, dtype, stream
+        _I, _I, _I, _I, _P,      # tile, nwin, sub, sentinel, stream
+    ],
+    "tdwss_windowed_fwd_mma": [
+        _P, _I64, _I,            # x, v_src, c
+        _P, _P, _P, _I64, _I64,  # starts, soff, rb, rb strides
+        _P, _I, _I, _I,          # w, ldw, k, cout
+        _P, _I64,                # out, v_out
+        _I, _I, _I, _I,          # tile, nwin, sub, sentinel
+        _I, _P,                  # n_tile, stream
     ],
     "tdwss_windowed_dw": [
         _P, _I64, _I,            # x, v_src, c
@@ -121,15 +141,16 @@ _ARGTYPES = {
         _P, _I64, _P, _I, _P,    # idx, m, out, vec_bytes, stream
     ],
 }
-_FUNCS = {"fwd": ("tdwss_windowed_fwd",),
+_FUNCS = {"fwd": ("tdwss_windowed_fwd", "tdwss_windowed_fwd_mma"),
           "bwd": ("tdwss_windowed_dw", "tdwss_windowed_bwd_gather"),
           "bwd_sub": ("tdwss_windowed_bwd_sub",),
           "gather": ("tdwss_block_gather",)}
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    for counts in (launches, body_launches):
+        for name in counts:
+            counts[name] = 0
 
 
 def _nvcc() -> str:
@@ -314,31 +335,60 @@ def windowed_matmul_plain(feats3, starts, rb_local_t, w, window, tile):
     return _plain(feats3, starts, None, rb_local_t, w, tile, 0, window)
 
 
+def fwd_tile(c: int, cout: int, k: int, dtype) -> Dict[str, object]:
+    """The forward's body for (C, Cout, K, dtype), as the wrapper launches
+    it: ``body`` (BODY_MMA for bf16, BODY_FMA for f32); for the
+    tensor-core body also ``n``, the column tile: the narrowest of 32,
+    64, 128, 256 that covers Cout, else 256 in ceil(Cout / 256) tiles."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"dtype {dtype} not in {list(_DTYPES)}")
+    if dtype != torch.bfloat16:
+        return {"body": BODY_FMA}
+    n = next((t for t in _MMA_TILES if cout <= t), _MMA_TILES[-1])
+    return {"body": BODY_MMA, "n": n}
+
+
 def _launch(name, feats3, starts, soff, rb_local_t, w, tile, sub, sentinel,
             nwin):
     _device_check([feats3, starts, rb_local_t, w, soff], feats3.dtype)
     if not feats3.is_contiguous():
         raise ValueError("feats3 must be contiguous")
     k, v_out = rb_local_t.shape
+    c, cout = feats3.shape[1], w.shape[-1]
     sk, sv = _rb_strides(rb_local_t)
     lib = _load("fwd")
     if k > lib.tdwss_windowed_fwd_kmax():
         raise ValueError(f"tap count {k} exceeds the kernel's limit")
-    w = w.to(feats3.dtype).contiguous()
     starts = starts.contiguous()
     soff = soff.contiguous() if soff is not None else None
-    out = torch.empty((v_out, w.shape[-1]), dtype=feats3.dtype,
-                      device=feats3.device)
+    out = torch.empty((v_out, cout), dtype=feats3.dtype, device=feats3.device)
     stream = torch.cuda.current_stream(feats3.device).cuda_stream
-    err = lib.tdwss_windowed_fwd(
-        feats3.data_ptr(), feats3.shape[0], feats3.shape[1],
-        starts.data_ptr(), soff.data_ptr() if soff is not None else None,
-        rb_local_t.data_ptr(), sk, sv, w.data_ptr(), k, w.shape[-1],
-        out.data_ptr(), v_out, tile, nwin, sub, sentinel,
-        _DTYPES[feats3.dtype], stream)
+    plan = fwd_tile(c, cout, k, feats3.dtype)
+    soff_ptr = soff.data_ptr() if soff is not None else None
+    if plan["body"] == BODY_MMA:
+        if max(v_out, feats3.shape[0], rb_local_t.numel()) >= 2 ** 31:
+            raise ValueError("the tensor-core body takes 32-bit row and "
+                             "rulebook indices")
+        # rows of w padded to a multiple of 8 columns (16-byte copies)
+        ldw = -(-cout // 8) * 8
+        w = w.to(feats3.dtype)
+        if ldw != cout or not w.is_contiguous() or w.data_ptr() % 16:
+            w = torch.nn.functional.pad(w, (0, ldw - cout)).contiguous()
+        err = lib.tdwss_windowed_fwd_mma(
+            feats3.data_ptr(), feats3.shape[0], c, starts.data_ptr(),
+            soff_ptr, rb_local_t.data_ptr(), sk, sv, w.data_ptr(), ldw, k,
+            cout, out.data_ptr(), v_out, tile, nwin, sub, sentinel,
+            plan["n"], stream)
+    else:
+        w = w.to(feats3.dtype).contiguous()
+        err = lib.tdwss_windowed_fwd(
+            feats3.data_ptr(), feats3.shape[0], c, starts.data_ptr(),
+            soff_ptr, rb_local_t.data_ptr(), sk, sv, w.data_ptr(), k, cout,
+            out.data_ptr(), v_out, tile, nwin, sub, sentinel, stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
     launches[name] += 1
+    body_launches[f"{name}:{plan['body']}"] += 1
     return out
 
 
