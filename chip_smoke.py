@@ -28,11 +28,12 @@ checks them:
    flat form) at the level-0 shape, and K3 at the widest conv of the
    path, against their plain versions in bf16 and in f32, timed as in 3;
    K6 (windowed_bwd_sub) at the bench UNet's widest subm conv and at
-   Narrow's widest level, in bf16 and f32, bit for bit twice, timed;
+   Narrow's widest level, in bf16 and f32, bit for bit twice, timed (K2
+   and K6 in samples of BACK_TO_BACK calls back to back);
 5. validation: ``validate`` (2 vote repetitions) with the launch counts
    set to 0 just before and read just after, equal to what the plans
    route to each kernel, every K1/K4 launch on the tensor-core body (the
-   per-body counts); each kernel's device time in one rep's forward
+   per-body counts of K1/K4, K2 and K6); each kernel's device time in one rep's forward
    (CUDA events around each kernel wrapper call); the per-point logits
    of a full forward, bit for bit over two forwards, and held against the
    same forward through the plain versions on the card;
@@ -42,9 +43,9 @@ checks them:
    with batch norm in train mode, scene pooling, Classification loss,
    backward through the kernels, Adam) with the launch counts set to 0
    just before and read just after, equal to the plans' routing, and
-   every K1/K4 launch on the tensor-core body; the loss is finite and
-   every parameter moves; each kernel's device time in one more (warm)
-   step; every windowed backward and unpool of one step re-run through
+   every K1/K4, K2 and K6 launch on the tensor-core body; the loss is
+   finite and every parameter moves; each kernel's device time in one
+   more (warm) step; every windowed backward and unpool of one step re-run through
    the plain versions, and the step's loss held against them; for the
    UNet also two bf16 steps' gradients bit for bit and the f32 step (see
    the tolerances below); the identity unpools of the Narrow batch timed
@@ -56,7 +57,12 @@ checks them:
    version in bf16 and f32, each launch on the body its dtype selects;
    K4 on the same windows in the flat form bit for bit equal to K1 in
    bf16; one line per shape with its bf16 time and the bound;
-8. brick engine (``tdwss_torch.ops.experimental``), on the level-0 grid
+8. backward sweep: K2 and K6 at every distinct (kernel, Cin, Cout, K,
+   flip_taps, need_dfeats) that the paths of 6 launched, on their own
+   plans, against their plain versions in bf16 and f32, each launch on
+   the body its dtype selects, two launches bit for bit equal; one line
+   per shape with its bf16 time and the bound;
+9. brick engine (``tdwss_torch.ops.experimental``), on the level-0 grid
    of the bench batch: with the launch counts set to 0 just before and
    read just after, the host brick plan (timed), ``brick_subm_conv`` at
    32 -> 32 in bf16, and the halo-face gather through ``gather_blocks``
@@ -70,9 +76,9 @@ checks them:
    (samples of BACK_TO_BACK calls back to back) beside
    ``torch.index_select`` and its bound, and at 30-byte rows (2-byte
    copies), bit for bit;
-9. one JSON line with the numbers of every ported kernel (K1-K7, each
-   with its launches over the main paths and the brick path, 0
-   included), the card line from ``nvidia-smi``, and the result line.
+10. one JSON line with the numbers of every ported kernel (K1-K7, each
+    with its launches over the main paths and the brick path, 0
+    included), the card line from ``nvidia-smi``, and the result line.
 
 Any failure raises and the exit code is not 0.  Without CUDA, or without
 the rest of the repository beside this file, it exits non-zero and prints
@@ -155,10 +161,11 @@ STEPS_PER_EPOCH = 100
 GATHER_MAX_C = 128
 # The brick engine's width: the bench m.
 BRICK_C = 32
-# K7 and K1/K4 take 0.1-1 ms, the same order as their wrappers' host
-# work: each timed sample of them, their plain versions and the library
-# call, and each bf16 time of the forward sweep, is the mean of this many
-# calls back to back, so that the device does not wait on the host.
+# K7, K1/K4, K2 and K6 take 0.1-1 ms, the same order as their wrappers'
+# host work: each timed sample of them, their plain versions and the
+# library call, and each bf16 time of the forward and backward sweeps, is
+# the mean of this many calls back to back, so that the device does not
+# wait on the host.
 BACK_TO_BACK = 10
 
 
@@ -522,7 +529,7 @@ def phase_bwd_kernels(case, wide):
     rows = [kernel_row(W.K2, src, "tdwss/ops/pallas_subm.py:926",
                        lambda: a["k2"](W.windowed_bwd_gather, True),
                        lambda: a["k2"](W.windowed_bwd_gather_plain, True),
-                       a["work_k2"], errs[W.K2]),
+                       a["work_k2"], errs[W.K2], window=BACK_TO_BACK),
             kernel_row(W.K3, src, "tdwss/ops/pallas_subm.py:1122",
                        lambda: a["k3"](W.windowed_dw_sub),
                        lambda: a["k3"](W.windowed_dw_sub_plain),
@@ -580,20 +587,20 @@ def phase_k6(cases):
             "tdwss/ops/pallas_subm.py:1339", run, plain,
             lambda: W.work_bwd_sub(x, dout, st, soff, cs["rb"].t(), wt,
                                    cs["tile"], cs["sub"], cs["subwin"]),
-            err))
+            err, window=BACK_TO_BACK))
     for (label, _), row in zip(cases[1:], rows[1:]):
         log(f"{W.K6} at {label} (logged only): {json.dumps(row)}")
     return rows[0]
 
 
-def check_fwd_bodies(label):
-    """Every K1 / K4 launch counted since the last reset went to the
-    tensor-core body (the counted paths run in bf16)."""
+def check_bodies(label):
+    """Every K1 / K4, K2 and K6 launch counted since the last reset went
+    to the tensor-core body (the counted paths run in bf16)."""
     from tdwss_torch.ops import windowed as W
 
     bodies = dict(W.body_launches)
-    log(f"{label}: K1/K4 launches per body: {bodies}")
-    for name in (W.K1, W.K4):
+    log(f"{label}: K1/K4, K2, K6 launches per body: {bodies}")
+    for name in (W.K1, W.K4, W.K2, W.K6):
         if (bodies[f"{name}:{W.BODY_FMA}"]
                 or bodies[f"{name}:{W.BODY_MMA}"] != W.launches[name]):
             raise AssertionError(f"{label}: a bf16 {name} launch did not take "
@@ -755,6 +762,32 @@ def record_fwd_shapes(shapes):
         yield shapes
 
 
+@contextlib.contextmanager
+def record_bwd_shapes(shapes):
+    """Record, for each distinct (kernel, Cin, Cout, K, flip_taps,
+    need_dfeats) that the enclosed run sends to K2 or K6, the plan
+    tensors and geometry of its first call (features and weights by shape
+    only) into ``shapes``."""
+    def make(name, fn):
+        def recorded(a, b, starts, soff, rb_t, wt, **kwargs):
+            # K2: (dout, feats, ...); K6: (feats, dout, ...)
+            k, cout, cin = wt.shape
+            flip = (kwargs.get("flip_taps", True)
+                    if name == "windowed_bwd_gather" else None)
+            key = (name, cin, cout, k, flip, kwargs.get("need_dfeats", True))
+            if key not in shapes:
+                geo = {n: kwargs[n] for n in ("window", "tile", "sub",
+                                              "subwin")}
+                shapes[key] = dict(v_src=a.shape[0], rows=b.shape[0],
+                                   starts=starts, soff=soff, rb_t=rb_t,
+                                   geo=geo)
+            return fn(a, b, starts, soff, rb_t, wt, **kwargs)
+        return recorded
+
+    with patched_entries(("windowed_bwd_gather", "windowed_bwd_sub"), make):
+        yield shapes
+
+
 def plain_versions():
     """Route the model's windowed evaluations, forward and backward,
     through the plain versions (for the comparison runs only)."""
@@ -839,7 +872,7 @@ def phase_main(cfg, scenes, plans_rep1, batch_rep1, device):
     ious = validate(cfg, model, scenes, reps=VAL_REPS, verbose=False,
                     device=device, timings=timings)
     launches = dict(W.launches)
-    check_fwd_bodies("validate")
+    check_bodies("validate")
     for t, miou in zip(timings, ious):
         log(f"validate rep {t['rep']}: host planning {t['plan_s']:.3f} s, "
             f"device forward+votes {t['device_s']:.3f} s, mIoU {miou:.6f}")
@@ -937,21 +970,24 @@ def phase_train(label, cfg, planned, host, host_s, device, steps,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     W.reset_launches()
-    losses, step_s = [], []
+    losses, step_s, issue_s = [], [], []
     for _ in range(steps):
         t = time.perf_counter()
         loss, _ = train_step(cfg, model, opt, sched, batch)
+        issue_s.append(time.perf_counter() - t)
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t)
         losses.append(loss)
     launches = dict(W.launches)
-    check_fwd_bodies(label)
+    check_bodies(label)
     peak = torch.cuda.max_memory_allocated() / 2**30
     losses = [float(x) for x in losses]
-    for i, (x, sec) in enumerate(zip(losses, step_s)):
+    for i, (x, sec, iss) in enumerate(zip(losses, step_s, issue_s)):
         log(f"{label}: train step {i + 1}: loss {x:.6f}; device {sec:.3f} s "
-            f"(forward + backward + Adam, ended by a synchronise); host "
-            f"planning of its batch {host_s:.3f} s")
+            f"(forward + backward + Adam, ended by a synchronise), of which "
+            f"{iss:.3f} s until train_step returned (the host's issue time, "
+            f"with any synchronisation inside the step); host planning of "
+            f"its batch {host_s:.3f} s")
     log(f"{label}: peak device memory over the steps: {peak:.2f} GiB")
     per_step = expected_launches(model, host.plans, train=True)
     want = {k: v * steps for k, v in per_step.items()}
@@ -1211,6 +1247,83 @@ def phase_fwd_sweep(shapes, device, gen):
     return len(cases)
 
 
+def phase_bwd_sweep(shapes, device, gen):
+    """K2 and K6 at every distinct (kernel, Cin, Cout, K, flip_taps,
+    need_dfeats) of ``shapes`` (what the paths sent them, on the paths'
+    own plans), on seeded random cotangents, features and weights,
+    against the plain versions in bf16 (dfeats KERNEL_TOL) and f32
+    (KERNEL_TOL_F32), dW within DW_TOL; each launch on the body its
+    dtype selects (bf16: the tensor cores), two launches bit for bit
+    equal; one line per shape with the bf16 time (CUDA events, samples of
+    BACK_TO_BACK calls) and the bound.  Returns {key: (ms, bound_ms)}."""
+    import torch
+
+    from tdwss_torch.ops import windowed as W
+
+    times = {}
+    for key, a in sorted(shapes.items(), key=lambda kv: str(kv[0])):
+        name, cin, cout, k, flip, need = key
+        k2 = name == W.K2
+        v_out = a["rb_t"].shape[1]
+        dout = torch.randn((a["v_src"] if k2 else a["rows"], cout),
+                           generator=gen).to(device)
+        feats = torch.randn((a["rows"] if k2 else a["v_src"], cin),
+                            generator=gen).to(device)
+        wt = (torch.randn((k, cout, cin), generator=gen)
+              * (2.0 / (k * cout)) ** 0.5).to(device)
+        plan = (a["starts"], a["soff"], a["rb_t"])
+        kw = dict(a["geo"], need_dfeats=need)
+        if k2:
+            kw["flip_taps"] = flip
+
+        def call(fn, dt):
+            d, f, w = dout.to(dt), feats.to(dt), wt.to(dt)
+            return (fn(d, f, *plan, w, **kw) if k2
+                    else fn(f, d, *plan, w, **kw))
+
+        fn, plain = getattr(W, name), getattr(W, name + "_plain")
+        label = (f"V_src={a['v_src']} V_out={v_out} Cin={cin} Cout={cout} "
+                 f"K={k}" + (f" flip_taps={flip}" if k2 else "")
+                 + f" need_dfeats={need}")
+        for dtype, tol in ((torch.bfloat16, KERNEL_TOL),
+                           (torch.float32, KERNEL_TOL_F32)):
+            body = W.bwd_tile(name, cin, cout, k, dtype)["body"]
+            before = W.body_launches[f"{name}:{body}"]
+            (dx, dw), (pdx, pdw) = call(fn, dtype), call(plain, dtype)
+            dx2, dw2 = call(fn, dtype)
+            torch.cuda.synchronize()
+            if W.body_launches[f"{name}:{body}"] != before + 2 or (
+                    dtype == torch.bfloat16 and body != W.BODY_MMA):
+                raise AssertionError(f"sweep {name} {label}: {dtype} did "
+                                     "not take its body")
+            lab = f"sweep {label} {str(dtype)[6:]}"
+            if need:
+                check_against_plain(name, dx, pdx, f"dfeats {lab}", tol)
+            check_against_plain(name, dw, pdw, f"dW {lab}", DW_TOL)
+            if not (torch.equal(dw, dw2) and (dx is None
+                                              or torch.equal(dx, dx2))):
+                raise AssertionError(f"sweep {name} {label}: two launches "
+                                     "differ")
+            del dx, dw, pdx, pdw, dx2, dw2
+        d16, f16, w16 = (dout.to(torch.bfloat16), feats.to(torch.bfloat16),
+                         wt.to(torch.bfloat16))
+        ms = cuda_time_ms(lambda: call(fn, torch.bfloat16), iters=5,
+                          warmup=1, window=BACK_TO_BACK)
+        work = W.work_bwd_gather if k2 else W.work_bwd_sub
+        nbytes, flops = (work(d16, f16, *plan, w16, a["geo"]["tile"],
+                              a["geo"]["sub"], a["geo"]["subwin"], need)
+                         if k2 else
+                         work(f16, d16, *plan, w16, a["geo"]["tile"],
+                              a["geo"]["sub"], a["geo"]["subwin"], need))
+        bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S) * 1e3
+        log(f"sweep {name}: {label}: bf16 {ms:.4f} ms (median of 5 of "
+            f"{BACK_TO_BACK} back to back), bound {bound:.4f} ms ({nbytes} B, "
+            f"{flops} flop); tile {W.bwd_tile(name, cin, cout, k, torch.bfloat16)}")
+        times[key] = (ms, bound)
+        del dout, feats, wt, d16, f16, w16
+    return times
+
+
 def halo_face_index(plan):
     """K7's index for the brick tensor viewed as (B * S, S, S * C) x-slabs:
     for every occupied brick, the low x-face (slab 0) of its dx = +1
@@ -1468,8 +1581,8 @@ def main() -> int:
     del wide, narrow_wide
 
     reset_sticky_plans()
-    shapes = {}
-    with record_fwd_shapes(shapes):
+    shapes, bwd_shapes = {}, {}
+    with record_fwd_shapes(shapes), record_bwd_shapes(bwd_shapes):
         val_launches = phase_main(cfg, scenes, batch.plans, batch, device)
         unet_batch = plan_train_batch(cfg, scenes, "UNet")
         paths = {"validate": val_launches,
@@ -1487,6 +1600,12 @@ def main() -> int:
     n = phase_fwd_sweep(shapes, device, gen)
     log(f"forward sweep: {n} shapes held against the plain versions")
     del shapes
+    times = phase_bwd_sweep(bwd_shapes, device, gen)
+    log(f"backward sweep: {len(times)} shapes of K2 and K6 held against "
+        f"the plain versions; bf16 ms / bound ms: " + ", ".join(
+            f"{k[0]} {k[1]}->{k[2]} K={k[3]}: {ms:.4f} / {b:.4f}"
+            for k, (ms, b) in sorted(times.items(), key=lambda kv: str(kv[0]))))
+    del bwd_shapes
     k7_row, paths["brick"] = phase_brick(batch, device, gen)
     rows.append(k7_row)
     # The kernels line lists every ported kernel with its launches summed

@@ -15,36 +15,54 @@
 // K1's flat form.  x, dout, feats and wt are in T (f32 or bf16); every
 // product is accumulated in f32.
 //
-// Design (a first, simple and correct kernel).
-// - dW is a reduction over all rows, and blocks run in no order.  Each
-//   block owns one chunk of rows and one TM x TN tile of (C, Cout); for
-//   each tap it compacts the chunk's live (row, source) entries into
-//   shared memory (warp ballots, in row order), stages BK entries' rows
-//   of both operands in shared memory, and accumulates an f32 micro-tile
-//   per thread.  Taps with no live entry cost one scan of the locals.
-//   The block writes its per-chunk partial dW (no atomics); a second
-//   kernel sums the partials over chunks in a fixed order.  dW is
-//   therefore bitwise reproducible run to run.
-// - K2's dfeats is K1's gather-GEMM block (windowed_common.cuh) on the
-//   cotangent with the transposed weights.  K2 is one launch whose first
-//   blocks compute dfeats tiles and whose other blocks compute the dW
-//   partials, followed by the reduction; dfeats can be skipped (a NULL
-//   output) when the caller needs dW only (the stem's input has no
-//   gradient).
-// - The TPU kernel shares one window DMA and one transposed one-hot
-//   between the two products; here the two block roles read the
-//   gathered cotangent rows separately (the second read mostly hits L2).
+// K2 has two bodies; the element type selects one, and the caller names
+// the tiles (tdwss_torch/ops/windowed.py, bwd_tile).
+//
+// * bf16, the tensor-core body (windowed_mma.cuh), two launches and the
+//   reduction:
+//   - dfeats is K1's function with the cotangent as the gathered source
+//     and wt as the weights, so it runs K1's body, fwd_mma_kernel<N>
+//     (cp.async rings of the used taps' 8-channel items, ldmatrix and
+//     mma.sync m16n8k16), N the narrowest of 32-256 that covers Cin;
+//   - dW runs dw_mma_kernel: per block one chunk of rows and a TM x TN
+//     tile of (Cin, Cout) in {32, 64}^2; per tap and 128 rows, the live
+//     (v, src) entries are ballot-compacted in row order, feats[v] (dense)
+//     and dout[src] (gathered) are copied by 16-byte cp.async into a
+//     two-stage ring in 16-entry groups (only the last group of each
+//     128-row step is zero-filled, so dead entries cost no copy), and
+//     multiplied with mma.sync from ldmatrix.trans fragments;
+//   - the per-chunk partials are summed in chunk order by
+//     reduce_partials, which applies the flip (no atomics: dW repeats bit
+//     for bit).
+//   The two products read the gathered cotangent separately (the second
+//   read mostly hits L2); a fused form sharing the staged tile was not
+//   built.  The stem's 3-channel primal rows (C = 3, dW only) are staged
+//   by 2-byte loads.
+// * f32, the first design on the CUDA cores (TF32 would break the f32
+//   checks, 1e-4 of max|plain|): one launch whose first blocks compute
+//   dfeats tiles with gather_gemm_block (windowed_common.cuh) and whose
+//   other blocks compute the dW partials with dw_block below, then the
+//   reduction.
+//
+// K3/K5 run dw_block (their bf16 too): one block per (chunk of rows,
+// TM x TN tile); per tap the chunk's live entries are compacted, BK
+// entries' rows of both operands are staged in shared memory as f32, and
+// an f32 micro-tile per thread accumulates on the CUDA cores; per-chunk
+// partials and the same fixed-order reduction.
 //
 // Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16 dense): the larger of
 //   bytes / 3.35e12 with bytes = each distinct gathered row, each dense
 //       row, rb, starts, offsets, wt and both outputs once, and
 //   (2 per product) * (live entries) * c * cout / 989e12.
-// At the bench widths the bytes term dominates.  This version runs its
-// products on the CUDA cores and re-reads the locals once per tap, so
-// it is compute- and L2-bound far above that bound; wgmma for the
-// products and cp.async/TMA for the gathers are later work.
+// At the bench widths the bytes term dominates.  The floor in practice
+// is latency: every block resolves its rows' sources tap by tap (the 85
+// MB rulebook at level 0), and about 83% of level-0 (row, tap) entries
+// are dead.  What the first design lost in bf16 (5.68 ms at level 0, 32
+// -> 32, against K1 + K3 = 0.52 + 2.27 ms): dfeats on K1's first f32
+// body (3.43 ms alone), and dW as f32 FMAs from a one-deep shared stage
+// of 2-byte loads, with two barriers per 32 entries.
 
-#include "windowed_common.cuh"
+#include "windowed_mma.cuh"
 
 namespace {
 
@@ -309,25 +327,6 @@ int launch_bwd_gather(const void* dout, int64_t v_src, int cout,
                                 stream);
 }
 
-template <typename T>
-int dispatch_bwd_gather(const void* dout, int64_t v_src, int cout,
-                        const void* starts, const void* soff, const void* rb,
-                        int64_t rsk, int64_t rsv, int k, const void* wt,
-                        const void* feats, int cin, void* dfeats,
-                        int64_t v_out, int tile, int nwin, int sub,
-                        int sentinel, int flip, int nchunk, float* part,
-                        float* dw, cudaStream_t stream) {
-  if (cin <= 32 && cout <= 32)
-    return launch_bwd_gather<T, 32, 32>(
-        dout, v_src, cout, starts, soff, rb, rsk, rsv, k, wt, feats, cin,
-        dfeats, v_out, tile, nwin, sub, sentinel, flip, nchunk, part, dw,
-        stream);
-  return launch_bwd_gather<T, 64, 64>(
-      dout, v_src, cout, starts, soff, rb, rsk, rsv, k, wt, feats, cin,
-      dfeats, v_out, tile, nwin, sub, sentinel, flip, nchunk, part, dw,
-      stream);
-}
-
 bool bad_args(int64_t v_out, int k, int nwin, int nchunk) {
   return v_out <= 0 || k > KMAX || k <= 0 || nwin <= 0 || nchunk <= 0 ||
          nchunk > v_out;
@@ -379,28 +378,51 @@ int tdwss_windowed_dw(const void* x, int64_t v_src, int c, const void* starts,
 
 // K2 (sub form, sentinel = subwin): dfeats (v_out, cin) in dtype (NULL
 // skips it) and dw (k, cin, cout) f32 from dout (v_src, cout), wt
-// (k, cout, cin) and feats (v_out, cin), all in dtype.  flip != 0 sends
-// tap a's product to dw[k - 1 - a].  part as for tdwss_windowed_dw.
+// (k, cout, ldw) and feats (v_out, cin), all in dtype (0 = float32, 1 =
+// bfloat16).  flip != 0 sends tap a's product to dw[k - 1 - a].  part is
+// f32 scratch of nchunk * k * cin * cout elements.  The tiles: bf16 takes
+// the tensor-core body with (tm, tn) in {32, 64}^2 for dW and n_tile for
+// dfeats (ldw a multiple of 8 >= cin, wt 16-byte aligned); f32 the
+// CUDA-core body with tm = tn in {32, 64} (ldw = cin, n_tile unused).
+// Returns the first CUDA error of the launches (0 on success).
 int tdwss_windowed_bwd_gather(const void* dout, int64_t v_src, int cout,
                               const void* starts, const void* soff,
                               const void* rb, int64_t rb_stride_k,
                               int64_t rb_stride_v, int k, const void* wt,
-                              const void* feats, int cin, void* dfeats,
-                              int64_t v_out, int tile, int nwin, int sub,
-                              int sentinel, int flip, int nchunk, void* part,
-                              void* dw, int dtype, void* stream) {
+                              int ldw, const void* feats, int cin,
+                              void* dfeats, int64_t v_out, int tile, int nwin,
+                              int sub, int sentinel, int flip, int nchunk,
+                              void* part, void* dw, int dtype, int tm, int tn,
+                              int n_tile, void* stream) {
   if (bad_args(v_out, k, nwin, nchunk) || soff == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* pp = static_cast<float*>(part);
   float* dp = static_cast<float*>(dw);
-  if (dtype == 0)
-    return dispatch_bwd_gather<float>(
+  if (dtype == 1) {
+    if (dfeats != nullptr) {
+      const int err = tdwss::windowed_fwd_mma(
+          dout, v_src, cout, starts, soff, rb, rb_stride_k, rb_stride_v, wt,
+          ldw, k, cin, dfeats, v_out, tile, nwin, sub, sentinel, n_tile, s);
+      if (err != 0) return err;
+    }
+    const int err = tdwss::dw_mma(
+        feats, cin, dout, cout, starts, soff, rb, rb_stride_k, rb_stride_v,
+        k, v_src, v_out, tile, nwin, sub, sentinel, nchunk, tm, tn, 0, pp, s);
+    if (err != 0) return err;
+    return tdwss::reduce_partials(pp, nchunk, k,
+                                  static_cast<int64_t>(cin) * cout, flip, dp,
+                                  s);
+  }
+  if (dtype != 0 || ldw != cin || tm != tn)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (tm == 32)
+    return launch_bwd_gather<float, 32, 32>(
         dout, v_src, cout, starts, soff, rb, rb_stride_k, rb_stride_v, k, wt,
         feats, cin, dfeats, v_out, tile, nwin, sub, sentinel, flip, nchunk,
         pp, dp, s);
-  if (dtype == 1)
-    return dispatch_bwd_gather<__nv_bfloat16>(
+  if (tm == 64)
+    return launch_bwd_gather<float, 64, 64>(
         dout, v_src, cout, starts, soff, rb, rb_stride_k, rb_stride_v, k, wt,
         feats, cin, dfeats, v_out, tile, nwin, sub, sentinel, flip, nchunk,
         pp, dp, s);

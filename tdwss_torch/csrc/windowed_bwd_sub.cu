@@ -14,34 +14,47 @@
 // feats and dout stay apart and dW is (k, cin, cout).  feats, dout and wt
 // are in T (f32 or bf16); every product is accumulated in f32.
 //
-// Design (a first, simple and correct kernel).
-// - One block per (chunk of output rows, 32 input channels c0..c0+31),
-//   with every output channel (in slabs of up to 256).  For each tap the
-//   block compacts the chunk's live (row v, source s) entries into shared
-//   memory with warp ballots, in row order: each entry's source row is
-//   resolved once and serves both products:
-//     dW:     feats[s, c0:c0+32]^T (x) dout[v, :]  into f32 registers that
-//             hold the block's (32 x slab) tile of dW[a] over the chunk;
-//     dfeats: dout[s, :] @ wt[a][:, c0:c0+32]      added into row v of an
-//             f32 accumulator in device memory.
-//   Within one tap every entry has its own row v, and the rows of a chunk
-//   and its 32 columns belong to this block alone, so the dfeats adds
-//   need no atomics and run in a fixed order (taps in order, then slabs).
-// - dW: each block writes its per-chunk partial; the shared second pass
-//   (windowed_common.cuh) sums the partials in chunk order.  dfeats: one
-//   pass converts the f32 accumulator to T (skipped in f32, where the
-//   accumulator is the output).  Both results are bitwise reproducible.
+// Two bodies; the element type selects one, and the caller names the
+// tiles (tdwss_torch/ops/windowed.py, bwd_tile).
+//
+// * bf16, the tensor-core body (windowed_mma.cuh), two launches and the
+//   reduction:
+//   - dfeats is K1's function with the cotangent as the gathered source
+//     and wt as the weights: K1's body, fwd_mma_kernel<N>, whose output
+//     tile stays in registers over all taps and is rounded once (Cin up to
+//     384 takes column tiles of 256, the last one masked);
+//   - dW runs dw_mma_kernel with feats gathered and the cotangent dense:
+//     per block a chunk of rows and a TM x TN tile of (Cin, Cout) in
+//     {32, 64}^2, live entries ballot-compacted per tap and 128 rows,
+//     16-byte cp.async gathers into a two-stage ring, mma.sync from
+//     ldmatrix.trans fragments;
+//   - reduce_partials sums the per-chunk partials in chunk order (no
+//     atomics: both results repeat bit for bit).
+//   Each product resolves the sources itself; a fused form sharing them
+//   was not built.
+// * f32, the first design on the CUDA cores (TF32 would break the f32
+//   checks, 1e-4 of max|plain|): one block per (chunk of output rows, 32
+//   input channels), every output channel in slabs of up to 256; for each
+//   tap the chunk's live (row v, source s) entries are compacted in row
+//   order and each serves both products: the dW tile in f32 registers,
+//   and dfeats added into row v of dfeats itself, which is the f32
+//   accumulator (the rows of a chunk and its 32 columns belong to one
+//   block, so the adds need no atomics and run in a fixed order).
 //
 // Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16 dense): the larger of
 //   bytes / 3.35e12 with bytes = each distinct gathered feats row, each
 //       dout row that is gathered or has a live entry, rb, starts,
 //       offsets, wt, dfeats and dW once, and
 //   2 products * 2 * (live entries) * cin * cout / 989e12.
-// This version runs both products on the CUDA cores and keeps dfeats'
-// sum in device memory (read and written once per live entry); wgmma and
-// a register-resident dfeats tile are later work.
+// At the deep UNet levels (384 -> 192) the operations term bounds it; at
+// Narrow's 256 -> 256 the bytes.  What the first design lost in bf16
+// (2.62 ms at the UNet's 384 -> 192, 11.40 ms at Narrow's 256 -> 256):
+// both products on the CUDA cores from 2-byte loads widened to f32, the
+// dfeats sum read and written in device memory once per live entry (an
+// f32 scratch of V_out x Cin and a pass converting it), and wt[a]
+// re-staged for every tap and every 256-column slab.
 
-#include "windowed_common.cuh"
+#include "windowed_mma.cuh"
 
 namespace {
 
@@ -205,73 +218,36 @@ __global__ void __launch_bounds__(NT) windowed_bwd_sub_kernel(
   }
 }
 
-// dfeats (T) from its f32 accumulator.
-template <typename T>
-__global__ void convert_kernel(const float* __restrict__ src, int64_t n,
-                               T* __restrict__ dst) {
-  for (int64_t e = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-       e < n; e += static_cast<int64_t>(gridDim.x) * blockDim.x)
-    tdwss::store(dst + e, src[e]);
-}
-
-template <typename T, int SLAB>
-int launch(const void* feats, const void* dout, int64_t v_src, int cin,
-           int cout, const void* starts, const void* soff, const void* rb,
-           int64_t rsk, int64_t rsv, int k, const void* wt, float* dx_acc,
-           void* dfeats, int64_t v_out, int tile, int nwin, int sub,
-           int sentinel, int nchunk, float* part, float* dw,
-           cudaStream_t stream) {
-  auto kernel = windowed_bwd_sub_kernel<T, SLAB>;
+// The f32 body: dfeats (f32, NULL skips it) is its own accumulator.
+template <int SLAB>
+int launch_f32(const void* feats, const void* dout, int64_t v_src, int cin,
+               int cout, const void* starts, const void* soff, const void* rb,
+               int64_t rsk, int64_t rsv, int k, const void* wt, float* dx,
+               int64_t v_out, int tile, int nwin, int sub, int sentinel,
+               int nchunk, float* part, float* dw, cudaStream_t stream) {
+  auto kernel = windowed_bwd_sub_kernel<float, SLAB>;
   const int smem = static_cast<int>(sizeof(SubSmem<SLAB>));
   int err = static_cast<int>(cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
   if (err != 0) return err;
-  if (dx_acc != nullptr) {
+  if (dx != nullptr) {
     err = static_cast<int>(cudaMemsetAsync(
-        dx_acc, 0, static_cast<size_t>(v_out) * cin * sizeof(float), stream));
+        dx, 0, static_cast<size_t>(v_out) * cin * sizeof(float), stream));
     if (err != 0) return err;
   }
   const int ct = (cin + TM - 1) / TM;
   const int64_t rows = (v_out + nchunk - 1) / nchunk;
   kernel<<<static_cast<unsigned>(nchunk) * ct, NT, smem, stream>>>(
-      static_cast<const T*>(feats), static_cast<const T*>(dout), v_src, cin,
-      cout, static_cast<const int32_t*>(starts),
+      static_cast<const float*>(feats), static_cast<const float*>(dout),
+      v_src, cin, cout, static_cast<const int32_t*>(starts),
       static_cast<const int32_t*>(soff), static_cast<const int32_t*>(rb), rsk,
-      rsv, k, static_cast<const T*>(wt), dx_acc, v_out, tile, nwin, sub,
+      rsv, k, static_cast<const float*>(wt), dx, v_out, tile, nwin, sub,
       sentinel, rows, ct, part);
   err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
-  err = tdwss::reduce_partials(part, nchunk, k, static_cast<int64_t>(cin) * cout,
-                               0, dw, stream);
-  if (err != 0) return err;
-  if (dx_acc != nullptr && dfeats != static_cast<void*>(dx_acc)) {
-    const int64_t n = v_out * static_cast<int64_t>(cin);
-    const int64_t blocks = (n + NT - 1) / NT;
-    convert_kernel<T><<<static_cast<unsigned>(blocks < 65535 ? blocks : 65535),
-                        NT, 0, stream>>>(dx_acc, n, static_cast<T*>(dfeats));
-    err = static_cast<int>(cudaGetLastError());
-  }
-  return err;
-}
-
-template <typename T>
-int dispatch(const void* feats, const void* dout, int64_t v_src, int cin,
-             int cout, const void* starts, const void* soff, const void* rb,
-             int64_t rsk, int64_t rsv, int k, const void* wt, float* dx_acc,
-             void* dfeats, int64_t v_out, int tile, int nwin, int sub,
-             int sentinel, int nchunk, float* part, float* dw,
-             cudaStream_t stream) {
-  if (cout <= 64)
-    return launch<T, 64>(feats, dout, v_src, cin, cout, starts, soff, rb,
-                         rsk, rsv, k, wt, dx_acc, dfeats, v_out, tile, nwin,
-                         sub, sentinel, nchunk, part, dw, stream);
-  if (cout <= 128)
-    return launch<T, 128>(feats, dout, v_src, cin, cout, starts, soff, rb,
-                          rsk, rsv, k, wt, dx_acc, dfeats, v_out, tile, nwin,
-                          sub, sentinel, nchunk, part, dw, stream);
-  return launch<T, 256>(feats, dout, v_src, cin, cout, starts, soff, rb, rsk,
-                        rsv, k, wt, dx_acc, dfeats, v_out, tile, nwin, sub,
-                        sentinel, nchunk, part, dw, stream);
+  return tdwss::reduce_partials(part, nchunk, k,
+                                static_cast<int64_t>(cin) * cout, 0, dw,
+                                stream);
 }
 
 }  // namespace
@@ -279,38 +255,57 @@ int dispatch(const void* feats, const void* dout, int64_t v_src, int cin,
 extern "C" {
 
 // K6 (sub form, sentinel = subwin): dw (k, cin, cout) f32 and, unless
-// dx_acc is NULL, dfeats (v_out, cin) in dtype (0 = float32, 1 =
+// dfeats is NULL, dfeats (v_out, cin) in dtype (0 = float32, 1 =
 // bfloat16), from feats (v_src, cin), dout (v_src, cout) and wt
-// (k, cout, cin), all in dtype.  dx_acc is f32 scratch of v_out * cin
-// (it may be dfeats itself in f32); part is f32 scratch of
-// nchunk * k * cin * cout.  Returns the first CUDA error (0 on success).
+// (k, cout, ldw), all in dtype.  part is f32 scratch of
+// nchunk * k * cin * cout.  The tiles: bf16 takes the tensor-core body
+// with (tm, tn) in {32, 64}^2 for dW and n_tile for dfeats (ldw a
+// multiple of 8 >= cin, wt 16-byte aligned); f32 the CUDA-core body with
+// tm = 32 input channels per block and tn = the output-channel slab, 64,
+// 128 or 256 (ldw = cin, n_tile unused).  Returns the first CUDA error
+// (0 on success).
 int tdwss_windowed_bwd_sub(const void* feats, const void* dout,
                            int64_t v_src, int cin, int cout,
                            const void* starts, const void* soff,
                            const void* rb, int64_t rb_stride_k,
                            int64_t rb_stride_v, int k, const void* wt,
-                           void* dx_acc, void* dfeats, int64_t v_out,
-                           int tile, int nwin, int sub, int sentinel,
-                           int nchunk, void* part, void* dw, int dtype,
-                           void* stream) {
+                           int ldw, void* dfeats, int64_t v_out, int tile,
+                           int nwin, int sub, int sentinel, int nchunk,
+                           void* part, void* dw, int dtype, int tm, int tn,
+                           int n_tile, void* stream) {
   if (v_out <= 0 || v_out > v_src || k <= 0 || k > tdwss::KMAX ||
       nwin <= 0 || nchunk <= 0 || nchunk > v_out || soff == nullptr ||
-      cin <= 0 || cout <= 0 || (dx_acc == nullptr) != (dfeats == nullptr))
+      cin <= 0 || cout <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* acc = static_cast<float*>(dx_acc);
   float* pp = static_cast<float*>(part);
   float* dp = static_cast<float*>(dw);
-  if (dtype == 0)
-    return dispatch<float>(feats, dout, v_src, cin, cout, starts, soff, rb,
-                           rb_stride_k, rb_stride_v, k, wt, acc, dfeats,
-                           v_out, tile, nwin, sub, sentinel, nchunk, pp, dp,
-                           s);
-  if (dtype == 1)
-    return dispatch<__nv_bfloat16>(feats, dout, v_src, cin, cout, starts,
-                                   soff, rb, rb_stride_k, rb_stride_v, k, wt,
-                                   acc, dfeats, v_out, tile, nwin, sub,
-                                   sentinel, nchunk, pp, dp, s);
+  if (dtype == 1) {
+    if (dfeats != nullptr) {
+      const int err = tdwss::windowed_fwd_mma(
+          dout, v_src, cout, starts, soff, rb, rb_stride_k, rb_stride_v, wt,
+          ldw, k, cin, dfeats, v_out, tile, nwin, sub, sentinel, n_tile, s);
+      if (err != 0) return err;
+    }
+    const int err = tdwss::dw_mma(
+        feats, cin, dout, cout, starts, soff, rb, rb_stride_k, rb_stride_v,
+        k, v_src, v_out, tile, nwin, sub, sentinel, nchunk, tm, tn, 1, pp, s);
+    if (err != 0) return err;
+    return tdwss::reduce_partials(pp, nchunk, k,
+                                  static_cast<int64_t>(cin) * cout, 0, dp, s);
+  }
+  if (dtype != 0 || ldw != cin || tm != TM)
+    return static_cast<int>(cudaErrorInvalidValue);
+  float* dx = static_cast<float*>(dfeats);
+#define TDWSS_K6_SLAB(S)                                                     \
+  if (tn == S)                                                               \
+    return launch_f32<S>(feats, dout, v_src, cin, cout, starts, soff, rb,    \
+                         rb_stride_k, rb_stride_v, k, wt, dx, v_out, tile,   \
+                         nwin, sub, sentinel, nchunk, pp, dp, s);
+  TDWSS_K6_SLAB(64)
+  TDWSS_K6_SLAB(128)
+  TDWSS_K6_SLAB(256)
+#undef TDWSS_K6_SLAB
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

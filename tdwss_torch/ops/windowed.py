@@ -24,11 +24,13 @@ nothing.  Every product accumulates in f32.  The TPU lane padding
 (``pad_w9``, the ``C3p`` axis) and lane packing are dropped: weights are
 ``(K, C, Cout)`` and dW comes back as ``(K, C, Cout)``.
 
-K1/K4 have two bodies, chosen by the dtype (:func:`fwd_tile`): bf16 runs
-on the tensor cores, f32 on the CUDA cores; ``body_launches`` counts
-their launches per body.  A CUDA tensor launches the kernels in
-``tdwss_torch/csrc/`` (K1/K4 in ``windowed_fwd.cu``, K2/K3/K5 in
-``windowed_bwd.cu``, K6 in
+K1/K4, K2 and K6 have two bodies each, chosen by the dtype
+(:func:`fwd_tile`, :func:`bwd_tile`): bf16 runs on the tensor cores
+(K2's and K6's dfeats on K1's body, their dW on the tensor-core dW tile,
+both in ``csrc/windowed_mma.cuh``), f32 on the CUDA cores;
+``body_launches`` counts their launches per body.  K3/K5 have one body.
+A CUDA tensor launches the kernels in ``tdwss_torch/csrc/`` (K1/K4 in
+``windowed_fwd.cu``, K2/K3/K5 in ``windowed_bwd.cu``, K6 in
 ``windowed_bwd_sub.cu``; built with ``nvcc``
 at first use into ``build/tdwss_torch/`` and bound with ctypes); a CPU
 tensor takes the plain PyTorch version beside each.  There is no
@@ -58,7 +60,8 @@ SOURCES = {"fwd": os.path.join(_CSRC, "windowed_fwd.cu"),
            "bwd": os.path.join(_CSRC, "windowed_bwd.cu"),
            "bwd_sub": os.path.join(_CSRC, "windowed_bwd_sub.cu"),
            "gather": os.path.join(_CSRC, "block_gather.cu")}
-HEADER = os.path.join(_CSRC, "windowed_common.cuh")
+HEADERS = (os.path.join(_CSRC, "windowed_common.cuh"),
+           os.path.join(_CSRC, "windowed_mma.cuh"))
 BUILD_DIR = os.path.join(_REPO_ROOT, "build", "tdwss_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -73,24 +76,26 @@ K6 = "windowed_bwd_sub"
 # libraries report theirs, and the forward launch checks against it).
 KMAX = 32
 launches: Dict[str, int] = {K1: 0, K2: 0, K3: 0, K4: 0, K5: 0, K6: 0}
-# The forward's two bodies (csrc/windowed_fwd.cu): bf16 runs on the tensor
-# cores (cp.async gathers, mma.sync), f32 on the CUDA cores.  K1 and K4
-# launches are also counted per body, "<kernel>:<body>".
+# The two bodies of K1/K4, K2 and K6: bf16 runs on the tensor cores
+# (cp.async gathers, mma.sync; csrc/windowed_mma.cuh), f32 on the CUDA
+# cores.  Their launches are also counted per body, "<kernel>:<body>".
 BODY_MMA, BODY_FMA = "mma", "fma"
-body_launches: Dict[str, int] = {f"{k}:{b}": 0 for k in (K1, K4)
+body_launches: Dict[str, int] = {f"{k}:{b}": 0 for k in (K1, K4, K2, K6)
                                  for b in (BODY_MMA, BODY_FMA)}
-# The tensor-core body's column tiles (windowed_fwd.cu derives the rest of
-# its tiling from the tile).
+# The forward body's column tiles (windowed_mma.cuh derives the rest of
+# its tiling from the tile); the tensor-core dW tile's sides.
 _MMA_TILES = (32, 64, 128, 256)
+_DW_MMA_SIDES = (32, 64)
 
 # dW partials: one block per (row chunk, C tile, Cout tile); enough
 # chunks for ~4 blocks per SM of an H100 (132 SMs), at least 256 rows a
-# chunk, at most 64 MiB of f32 partials.
+# chunk, at most 64 MiB of f32 partials (the tiles: K3/K5 and K2's f32
+# body 32 x 32 or 64 x 64, the tensor-core dW tile from bwd_tile).
 _TARGET_BLOCKS = 4 * 132
 _MIN_CHUNK_ROWS = 256
 _PART_BYTES = 64 << 20
-# K6: one block per (row chunk, 32 input channels) with every output
-# channel, so fewer blocks per chunk; its partials may take 256 MiB.
+# K6: its partials may take 256 MiB; its f32 body has one block per (row
+# chunk, 32 input channels) with every output channel.
 _SUB_TM = 32
 _SUB_PART_BYTES = 256 << 20
 
@@ -125,16 +130,18 @@ _ARGTYPES = {
     "tdwss_windowed_bwd_gather": [
         _P, _I64, _I,            # dout, v_src, cout
         _P, _P, _P, _I64, _I64,  # starts, soff, rb, rb strides
-        _I, _P, _P, _I, _P,      # k, wt, feats, cin, dfeats
+        _I, _P, _I, _P, _I, _P,  # k, wt, ldw, feats, cin, dfeats
         _I64, _I, _I, _I, _I,    # v_out, tile, nwin, sub, sentinel
-        _I, _I, _P, _P, _I, _P,  # flip, nchunk, part, dw, dtype, stream
+        _I, _I, _P, _P, _I,      # flip, nchunk, part, dw, dtype
+        _I, _I, _I, _P,          # tm, tn, n_tile, stream
     ],
     "tdwss_windowed_bwd_sub": [
         _P, _P, _I64, _I, _I,    # feats, dout, v_src, cin, cout
         _P, _P, _P, _I64, _I64,  # starts, soff, rb, rb strides
-        _I, _P, _P, _P,          # k, wt, dx_acc, dfeats
+        _I, _P, _I, _P,          # k, wt, ldw, dfeats
         _I64, _I, _I, _I, _I,    # v_out, tile, nwin, sub, sentinel
-        _I, _P, _P, _I, _P,      # nchunk, part, dw, dtype, stream
+        _I, _P, _P, _I,          # nchunk, part, dw, dtype
+        _I, _I, _I, _P,          # tm, tn, n_tile, stream
     ],
     "tdwss_block_gather": [
         _P, _I64, _I64,          # src, n, row_bytes
@@ -165,10 +172,10 @@ def _nvcc() -> str:
 
 def lib_path(part: str = "fwd") -> str:
     """Path of the built library of ``part`` (a key of ``SOURCES``),
-    named after its source and hashed by the source, the shared header
+    named after its source and hashed by the source, the shared headers
     and the flags."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in (SOURCES[part], HEADER):
+    for path in (SOURCES[part], *HEADERS):
         with open(path, "rb") as f:
             digest.update(f.read())
     stem = os.path.splitext(os.path.basename(SOURCES[part]))[0]
@@ -291,13 +298,25 @@ def _on_cpu(t) -> bool:
     return False
 
 
-def _nchunks(v_out, c, cout, k):
-    """Row chunks of the dW partials (see the module constants)."""
+def _fma_dw_tile(c, cout):
+    """The CUDA-core dW tile (``dw_block`` in windowed_bwd.cu: K3/K5 and
+    K2's f32 body): 32 x 32 where both widths are at most 32, else
+    64 x 64."""
     t = 32 if (c <= 32 and cout <= 32) else 64
-    tiles = -(-c // t) * -(-cout // t)
+    return {"tm": t, "tn": t}
+
+
+def _nchunks(v_out, c, cout, k, tile=None, part_bytes=_PART_BYTES):
+    """Row chunks of the dW partials (see the module constants) for the
+    blocks of ``tile`` (a :func:`bwd_tile` dict: ``tm`` x ``tn`` tiles of
+    (C, Cout), or ``tm`` input channels with every output channel where
+    it has no ``tn``); None is the K3/K5 tile."""
+    tile = tile or _fma_dw_tile(c, cout)
+    tiles = -(-c // tile["tm"]) * (-(-cout // tile["tn"]) if "tn" in tile
+                                   else 1)
     want = -(-_TARGET_BLOCKS // tiles)
     by_rows = max(1, v_out // _MIN_CHUNK_ROWS)
-    by_mem = max(1, _PART_BYTES // (k * c * cout * 4))
+    by_mem = max(1, part_bytes // (k * c * cout * 4))
     return max(1, min(want, by_rows, by_mem, v_out))
 
 
@@ -348,6 +367,53 @@ def fwd_tile(c: int, cout: int, k: int, dtype) -> Dict[str, object]:
     return {"body": BODY_MMA, "n": n}
 
 
+def bwd_tile(kernel: str, cin: int, cout: int, k: int,
+             dtype) -> Dict[str, object]:
+    """K2's or K6's body and tiles for (Cin, Cout, K, dtype), as the
+    wrapper launches them and as the dW partials are sized.
+
+    bf16: ``body`` BODY_MMA; ``n``, the dfeats column tile (K1's body over
+    an output of width Cin: :func:`fwd_tile` of Cin); ``tm`` x ``tn``,
+    the tensor-core dW tile of (Cin, Cout), each side 32 where the width
+    is at most 32, else 64.  f32: ``body`` BODY_FMA with the CUDA-core
+    tiles: K2 ``tm`` = ``tn`` = 32 where both widths are at most 32, else
+    64; K6 ``tm`` 32 input channels per block and ``slab``, the output
+    channels per pass (64, 128 or 256)."""
+    if kernel not in (K2, K6):
+        raise ValueError(f"bwd_tile takes {K2} or {K6}, not {kernel}")
+    if dtype not in _DTYPES:
+        raise TypeError(f"dtype {dtype} not in {list(_DTYPES)}")
+    if dtype == torch.bfloat16:
+        tm, tn = (next((s for s in _DW_MMA_SIDES if w <= s),
+                       _DW_MMA_SIDES[-1]) for w in (cin, cout))
+        return {"body": BODY_MMA, "n": fwd_tile(cout, cin, k, dtype)["n"],
+                "tm": tm, "tn": tn}
+    if kernel == K2:
+        return {"body": BODY_FMA, **_fma_dw_tile(cin, cout)}
+    slab = 64 if cout <= 64 else 128 if cout <= 128 else 256
+    return {"body": BODY_FMA, "tm": _SUB_TM, "slab": slab}
+
+
+def _weights(w, dtype, body):
+    """Weights (K, rows, cols) as a body reads them, in ``dtype``: the
+    tensor-core body's rows padded to a multiple of 8 columns (16-byte
+    copies) on a 16-byte aligned base; returns (w, its row stride)."""
+    w = w.to(dtype)
+    cols = w.shape[2]
+    if body != BODY_MMA:
+        return w.contiguous(), cols
+    ldw = -(-cols // 8) * 8
+    if ldw != cols or not w.is_contiguous() or w.data_ptr() % 16:
+        w = torch.nn.functional.pad(w, (0, ldw - cols)).contiguous()
+    return w, ldw
+
+
+def _check_mma_sizes(v_out, v_src, rb_local_t):
+    if max(v_out, v_src, rb_local_t.numel()) >= 2 ** 31:
+        raise ValueError("the tensor-core body takes 32-bit row and "
+                         "rulebook indices")
+
+
 def _launch(name, feats3, starts, soff, rb_local_t, w, tile, sub, sentinel,
             nwin):
     _device_check([feats3, starts, rb_local_t, w, soff], feats3.dtype)
@@ -365,22 +431,15 @@ def _launch(name, feats3, starts, soff, rb_local_t, w, tile, sub, sentinel,
     stream = torch.cuda.current_stream(feats3.device).cuda_stream
     plan = fwd_tile(c, cout, k, feats3.dtype)
     soff_ptr = soff.data_ptr() if soff is not None else None
+    w, ldw = _weights(w, feats3.dtype, plan["body"])
     if plan["body"] == BODY_MMA:
-        if max(v_out, feats3.shape[0], rb_local_t.numel()) >= 2 ** 31:
-            raise ValueError("the tensor-core body takes 32-bit row and "
-                             "rulebook indices")
-        # rows of w padded to a multiple of 8 columns (16-byte copies)
-        ldw = -(-cout // 8) * 8
-        w = w.to(feats3.dtype)
-        if ldw != cout or not w.is_contiguous() or w.data_ptr() % 16:
-            w = torch.nn.functional.pad(w, (0, ldw - cout)).contiguous()
+        _check_mma_sizes(v_out, feats3.shape[0], rb_local_t)
         err = lib.tdwss_windowed_fwd_mma(
             feats3.data_ptr(), feats3.shape[0], c, starts.data_ptr(),
             soff_ptr, rb_local_t.data_ptr(), sk, sv, w.data_ptr(), ldw, k,
             cout, out.data_ptr(), v_out, tile, nwin, sub, sentinel,
             plan["n"], stream)
     else:
-        w = w.to(feats3.dtype).contiguous()
         err = lib.tdwss_windowed_fwd(
             feats3.data_ptr(), feats3.shape[0], c, starts.data_ptr(),
             soff_ptr, rb_local_t.data_ptr(), sk, sv, w.data_ptr(), k, cout,
@@ -593,11 +652,14 @@ def windowed_bwd_gather(dout, feats, starts, soff, rb_local_t, wt, window,
         raise ValueError("dout must be contiguous")
     sk, sv = _rb_strides(rb_local_t)
     cout, cin = wt.shape[1], wt.shape[2]
-    wt = wt.to(dout.dtype).contiguous()
+    plan = bwd_tile(K2, cin, cout, k, dout.dtype)
+    if plan["body"] == BODY_MMA:
+        _check_mma_sizes(v_out, dout.shape[0], rb_local_t)
+    wt, ldw = _weights(wt, dout.dtype, plan["body"])
     feats = feats[:v_out].to(dout.dtype).contiguous()
     starts = starts.contiguous()
     soff = soff.contiguous()
-    nchunk = _nchunks(v_out, cin, cout, k)
+    nchunk = _nchunks(v_out, cin, cout, k, plan)
     part = torch.empty((nchunk, k, cin, cout), dtype=torch.float32,
                        device=dout.device)
     dw = torch.empty((k, cin, cout), dtype=torch.float32, device=dout.device)
@@ -607,12 +669,15 @@ def windowed_bwd_gather(dout, feats, starts, soff, rb_local_t, wt, window,
     err = _load("bwd").tdwss_windowed_bwd_gather(
         dout.data_ptr(), dout.shape[0], cout, starts.data_ptr(),
         soff.data_ptr(), rb_local_t.data_ptr(), sk, sv, k, wt.data_ptr(),
-        feats.data_ptr(), cin, dx.data_ptr() if dx is not None else None,
-        v_out, tile, nwin, sub, subwin, int(flip_taps), nchunk,
-        part.data_ptr(), dw.data_ptr(), _DTYPES[dout.dtype], stream)
+        ldw, feats.data_ptr(), cin,
+        dx.data_ptr() if dx is not None else None, v_out, tile, nwin, sub,
+        subwin, int(flip_taps), nchunk, part.data_ptr(), dw.data_ptr(),
+        _DTYPES[dout.dtype], plan["tm"], plan["tn"], plan.get("n", 0),
+        stream)
     if err != 0:
         raise RuntimeError(f"{K2} launch failed: cudaError {err}")
     launches[K2] += 1
+    body_launches[f"{K2}:{plan['body']}"] += 1
     return dx, dw
 
 
@@ -664,13 +729,10 @@ def windowed_bwd_sub_plain(feats, dout, starts, soff, rb_local_t, wt,
                           sub, subwin, need_dfeats)
 
 
-def _nchunks_sub(v_out, cin, cout, k):
-    """Row chunks of K6's dW partials (one block per chunk and 32 input
-    channels; see the module constants)."""
-    want = -(-_TARGET_BLOCKS // -(-cin // _SUB_TM))
-    by_rows = max(1, v_out // _MIN_CHUNK_ROWS)
-    by_mem = max(1, _SUB_PART_BYTES // (k * cin * cout * 4))
-    return max(1, min(want, by_rows, by_mem, v_out))
+def _nchunks_sub(v_out, cin, cout, k, tile):
+    """Row chunks of K6's dW partials for the blocks of ``tile`` (its
+    :func:`bwd_tile`; see the module constants)."""
+    return _nchunks(v_out, cin, cout, k, tile, _SUB_PART_BYTES)
 
 
 def windowed_bwd_sub(feats, dout, starts, soff, rb_local_t, wt, window,
@@ -702,30 +764,32 @@ def windowed_bwd_sub(feats, dout, starts, soff, rb_local_t, wt, window,
         raise ValueError("feats must be contiguous")
     sk, sv = _rb_strides(rb_local_t)
     cin, cout = feats.shape[1], dout.shape[1]
+    plan = bwd_tile(K6, cin, cout, k, feats.dtype)
+    if plan["body"] == BODY_MMA:
+        _check_mma_sizes(v_out, feats.shape[0], rb_local_t)
     dout = dout.to(feats.dtype).contiguous()
-    wt = wt.to(feats.dtype).contiguous()
+    wt, ldw = _weights(wt, feats.dtype, plan["body"])
     starts = starts.contiguous()
     soff = soff.contiguous()
-    nchunk = _nchunks_sub(v_out, cin, cout, k)
+    nchunk = _nchunks_sub(v_out, cin, cout, k, plan)
     part = torch.empty((nchunk, k, cin, cout), dtype=torch.float32,
                        device=feats.device)
     dw = torch.empty((k, cin, cout), dtype=torch.float32, device=feats.device)
-    dx = dx_acc = None
-    if need_dfeats:
-        dx = torch.empty((v_out, cin), dtype=feats.dtype, device=feats.device)
-        dx_acc = dx if feats.dtype == torch.float32 else torch.empty(
-            (v_out, cin), dtype=torch.float32, device=feats.device)
+    dx = (torch.empty((v_out, cin), dtype=feats.dtype, device=feats.device)
+          if need_dfeats else None)
     stream = torch.cuda.current_stream(feats.device).cuda_stream
     err = _load("bwd_sub").tdwss_windowed_bwd_sub(
         feats.data_ptr(), dout.data_ptr(), feats.shape[0], cin, cout,
         starts.data_ptr(), soff.data_ptr(), rb_local_t.data_ptr(), sk, sv, k,
-        wt.data_ptr(), dx_acc.data_ptr() if dx_acc is not None else None,
-        dx.data_ptr() if dx is not None else None, v_out, tile, nwin, sub,
-        subwin, nchunk, part.data_ptr(), dw.data_ptr(),
-        _DTYPES[feats.dtype], stream)
+        wt.data_ptr(), ldw, dx.data_ptr() if dx is not None else None, v_out,
+        tile, nwin, sub, subwin, nchunk, part.data_ptr(), dw.data_ptr(),
+        _DTYPES[feats.dtype], plan["tm"],
+        plan["tn"] if plan["body"] == BODY_MMA else plan["slab"],
+        plan.get("n", 0), stream)
     if err != 0:
         raise RuntimeError(f"{K6} launch failed: cudaError {err}")
     launches[K6] += 1
+    body_launches[f"{K6}:{plan['body']}"] += 1
     return dx, dw
 
 
