@@ -28,8 +28,8 @@ checks them:
    flat form) at the level-0 shape, and K3 at the widest conv of the
    path, against their plain versions in bf16 and in f32, timed as in 3;
    K6 (windowed_bwd_sub) at the bench UNet's widest subm conv and at
-   Narrow's widest level, in bf16 and f32, bit for bit twice, timed (K2
-   and K6 in samples of BACK_TO_BACK calls back to back);
+   Narrow's widest level, in bf16 and f32, bit for bit twice, timed (K2,
+   K3, K5 and K6 in samples of BACK_TO_BACK calls back to back);
 5. validation: ``validate`` (2 vote repetitions) with the launch counts
    set to 0 just before and read just after, equal to what the plans
    route to each kernel, every K1/K4 launch on the tensor-core body (the
@@ -62,7 +62,14 @@ checks them:
    plans, against their plain versions in bf16 and f32, each launch on
    the body its dtype selects, two launches bit for bit equal; one line
    per shape with its bf16 time and the bound;
-9. brick engine (``tdwss_torch.ops.experimental``), on the level-0 grid
+9. dW sweep: K3 (and K5, had a path a flat-form plan) at every distinct
+   (kernel, C, Cout, K) that the paths of 6 launched, on their own
+   plans, against its plain version in bf16 and f32, each launch on the
+   body its dtype selects, two launches bit for bit equal; K5 on the same
+   windows in the flat form, against its plain version and bit for bit
+   equal to K3 in bf16; one line per shape with the bf16 times and the
+   bound;
+10. brick engine (``tdwss_torch.ops.experimental``), on the level-0 grid
    of the bench batch: with the launch counts set to 0 just before and
    read just after, the host brick plan (timed), ``brick_subm_conv`` at
    32 -> 32 in bf16, and the halo-face gather through ``gather_blocks``
@@ -76,7 +83,7 @@ checks them:
    (samples of BACK_TO_BACK calls back to back) beside
    ``torch.index_select`` and its bound, and at 30-byte rows (2-byte
    copies), bit for bit;
-10. one JSON line with the numbers of every ported kernel (K1-K7, each
+11. one JSON line with the numbers of every ported kernel (K1-K7, each
     with its launches over the main paths and the brick path, 0
     included), the card line from ``nvidia-smi``, and the result line.
 
@@ -161,8 +168,8 @@ STEPS_PER_EPOCH = 100
 GATHER_MAX_C = 128
 # The brick engine's width: the bench m.
 BRICK_C = 32
-# K7, K1/K4, K2 and K6 take 0.1-1 ms, the same order as their wrappers'
-# host work: each timed sample of them, their plain versions and the
+# K7, K1/K4, K2, K3/K5 and K6 take 0.05-1 ms, the same order as their
+# wrappers' host work: each timed sample of them, their plain versions and the
 # library call, and each bf16 time of the forward and backward sweeps, is
 # the mean of this many calls back to back, so that the device does not
 # wait on the host.
@@ -533,15 +540,16 @@ def phase_bwd_kernels(case, wide):
             kernel_row(W.K3, src, "tdwss/ops/pallas_subm.py:1122",
                        lambda: a["k3"](W.windowed_dw_sub),
                        lambda: a["k3"](W.windowed_dw_sub_plain),
-                       a["work_k3"], errs[W.K3]),
+                       a["work_k3"], errs[W.K3], window=BACK_TO_BACK),
             kernel_row(W.K5, src, "tdwss/ops/pallas_subm.py:473",
                        lambda: a["k5"](W.windowed_dw),
                        lambda: a["k5"](W.windowed_dw_plain),
-                       a["work_k5"], errs[W.K5])]
+                       a["work_k5"], errs[W.K5], window=BACK_TO_BACK)]
     w = args(wide, torch.bfloat16)
     log(f"{W.K3} at the widest conv ({w['label']}):")
     kernel_row(W.K3, src, "", lambda: w["k3"](W.windowed_dw_sub),
-               lambda: w["k3"](W.windowed_dw_sub_plain), w["work_k3"], 0.0)
+               lambda: w["k3"](W.windowed_dw_sub_plain), w["work_k3"], 0.0,
+               window=BACK_TO_BACK)
     return rows
 
 
@@ -594,13 +602,13 @@ def phase_k6(cases):
 
 
 def check_bodies(label):
-    """Every K1 / K4, K2 and K6 launch counted since the last reset went
-    to the tensor-core body (the counted paths run in bf16)."""
+    """Every K1 / K4, K2, K3 / K5 and K6 launch counted since the last
+    reset went to the tensor-core body (the counted paths run in bf16)."""
     from tdwss_torch.ops import windowed as W
 
     bodies = dict(W.body_launches)
-    log(f"{label}: K1/K4, K2, K6 launches per body: {bodies}")
-    for name in (W.K1, W.K4, W.K2, W.K6):
+    log(f"{label}: K1/K4, K2, K3/K5, K6 launches per body: {bodies}")
+    for name in (W.K1, W.K4, W.K2, W.K3, W.K5, W.K6):
         if (bodies[f"{name}:{W.BODY_FMA}"]
                 or bodies[f"{name}:{W.BODY_MMA}"] != W.launches[name]):
             raise AssertionError(f"{label}: a bf16 {name} launch did not take "
@@ -785,6 +793,29 @@ def record_bwd_shapes(shapes):
         return recorded
 
     with patched_entries(("windowed_bwd_gather", "windowed_bwd_sub"), make):
+        yield shapes
+
+
+@contextlib.contextmanager
+def record_dw_shapes(shapes):
+    """Record, for each distinct (kernel, C, Cout, K) that the enclosed
+    run sends to K3 (sub form) or K5 (flat form), the plan tensors and
+    geometry of its first call (features and cotangents by shape only)
+    into ``shapes``, as ``record_fwd_shapes`` records K1's."""
+    def make(name, fn):
+        def recorded(feats3, starts, *rest, **kwargs):
+            if name == "windowed_dw_sub":
+                soff, rb_t, dout = rest[:3]
+            else:
+                soff, (rb_t, dout) = None, rest[:2]
+            key = (name, feats3.shape[1], dout.shape[1], rb_t.shape[0])
+            if key not in shapes:
+                shapes[key] = dict(v_src=feats3.shape[0], starts=starts,
+                                   soff=soff, rb_t=rb_t, kwargs=kwargs)
+            return fn(feats3, starts, *rest, **kwargs)
+        return recorded
+
+    with patched_entries(("windowed_dw_sub", "windowed_dw"), make):
         yield shapes
 
 
@@ -1324,6 +1355,93 @@ def phase_bwd_sweep(shapes, device, gen):
     return times
 
 
+def phase_dw_sweep(shapes, device, gen):
+    """K3 / K5 at every distinct (kernel, C, Cout, K) of ``shapes`` (what
+    the paths sent them, on the paths' own plans), on seeded random
+    features and cotangents, against the plain versions in bf16 and f32
+    within DW_TOL; each launch on the body its dtype selects (bf16: the
+    tensor cores, f32: the CUDA cores), two launches bit for bit equal;
+    for each sub-form plan also K5 on the same windows in the flat form
+    (``flat_locals``), against its plain version and bit for bit equal to
+    K3 in bf16.  One line per shape with the bf16 times (CUDA events,
+    samples of BACK_TO_BACK calls) and the bound.  Returns {label:
+    (ms, bound_ms)}, K5's flat runs under their own label."""
+    import torch
+
+    from tdwss_torch.ops import windowed as W
+
+    times = {}
+    for (name, c, cout, k), a in sorted(shapes.items(), key=lambda kv: kv[0]):
+        kw = a["kwargs"]
+        v_out = a["rb_t"].shape[1]
+        x = torch.randn((a["v_src"], c), generator=gen).to(device)
+        dout = torch.randn((v_out, cout), generator=gen).to(device)
+        sub = a["soff"] is not None
+        runs = [(name, (a["starts"], a["soff"], a["rb_t"]) if sub
+                 else (a["starts"], a["rb_t"]), kw,
+                 kw["subwin"] if sub else kw["window"])]
+        if name == W.K3:
+            runs.append((W.K5, (a["starts"], flat_locals(a, k)),
+                         dict(window=kw["window"], tile=kw["tile"]),
+                         kw["window"]))
+        label = (f"V_src={a['v_src']} V_out={v_out} C={c} Cout={cout} "
+                 f"K={k}")
+        outs = {}
+        for kern, plan, kwk, _ in runs:
+            fn, plain = getattr(W, kern), getattr(W, kern + "_plain")
+            form = "sub" if len(plan) == 3 else "flat"
+            for dtype in (torch.bfloat16, torch.float32):
+                xd, dd = x.to(dtype), dout.to(dtype)
+                body = W.bwd_tile(kern, c, cout, k, dtype)["body"]
+                want = W.BODY_MMA if dtype == torch.bfloat16 else W.BODY_FMA
+                before = W.body_launches[f"{kern}:{body}"]
+                out = fn(xd, *plan, dd, **kwk)
+                ref = plain(xd, *plan, dd, **kwk)
+                out2 = fn(xd, *plan, dd, **kwk)
+                torch.cuda.synchronize()
+                if body != want or (W.body_launches[f"{kern}:{body}"]
+                                    != before + 2):
+                    raise AssertionError(f"sweep {kern} {label}: {dtype} did "
+                                         "not take its body")
+                check_against_plain(kern, out, ref, f"dW sweep {form} {label} "
+                                    f"{str(dtype)[6:]}", DW_TOL)
+                if not torch.equal(out, out2):
+                    raise AssertionError(f"sweep {kern} {label}: two launches "
+                                         "differ")
+                outs[(kern, dtype)] = out
+                del ref, out2
+        if name == W.K3:
+            same, same32 = (torch.equal(outs[(W.K3, dt)], outs[(W.K5, dt)])
+                            for dt in (torch.bfloat16, torch.float32))
+            log(f"dW sweep {label}: K5 (flat form) vs K3 (sub form) on the "
+                f"same windows: bit-identical in bf16: {same}, in f32: "
+                f"{same32}")
+            if not same:
+                raise AssertionError(f"dW sweep {label}: K5 differs from K3 "
+                                     "on the same windows")
+        del outs
+        x16, d16 = x.to(torch.bfloat16), dout.to(torch.bfloat16)
+        for kern, plan, kwk, sentinel in runs:
+            fn = getattr(W, kern)
+            ms = cuda_time_ms(lambda: fn(x16, *plan, d16, **kwk), iters=5,
+                              warmup=1, window=BACK_TO_BACK)
+            soff = plan[1] if len(plan) == 3 else None
+            nbytes, flops = W.work_dw(
+                x16, plan[0], soff, plan[-1], d16, kw["tile"],
+                kw["sub"] if soff is not None else 0, sentinel)
+            bound = max(nbytes / HBM_BYTES_PER_S,
+                        flops / BF16_FLOPS_PER_S) * 1e3
+            form = "sub" if soff is not None else "flat"
+            log(f"dW sweep {kern}: {form} {label}: bf16 {ms:.4f} ms (median "
+                f"of 5 of {BACK_TO_BACK} back to back), bound {bound:.4f} ms "
+                f"({nbytes} B, {flops} flop); tile "
+                f"{W.bwd_tile(kern, c, cout, k, torch.bfloat16)}")
+            times[f"{kern} {form} {c}->{cout} K={k} V_out={v_out}"] = (ms,
+                                                                      bound)
+        del x, dout, x16, d16
+    return times
+
+
 def halo_face_index(plan):
     """K7's index for the brick tensor viewed as (B * S, S, S * C) x-slabs:
     for every occupied brick, the low x-face (slab 0) of its dx = +1
@@ -1581,8 +1699,9 @@ def main() -> int:
     del wide, narrow_wide
 
     reset_sticky_plans()
-    shapes, bwd_shapes = {}, {}
-    with record_fwd_shapes(shapes), record_bwd_shapes(bwd_shapes):
+    shapes, bwd_shapes, dw_shapes = {}, {}, {}
+    with record_fwd_shapes(shapes), record_bwd_shapes(bwd_shapes), \
+            record_dw_shapes(dw_shapes):
         val_launches = phase_main(cfg, scenes, batch.plans, batch, device)
         unet_batch = plan_train_batch(cfg, scenes, "UNet")
         paths = {"validate": val_launches,
@@ -1606,6 +1725,13 @@ def main() -> int:
             f"{k[0]} {k[1]}->{k[2]} K={k[3]}: {ms:.4f} / {b:.4f}"
             for k, (ms, b) in sorted(times.items(), key=lambda kv: str(kv[0]))))
     del bwd_shapes
+    times = phase_dw_sweep(dw_shapes, device, gen)
+    log(f"dW sweep: {len(dw_shapes)} shapes of K3/K5 held against the plain "
+        f"versions; bf16 ms / bound ms: " + ", ".join(
+            f"{k}: {ms:.4f} / {b:.4f}" for k, (ms, b) in times.items()))
+    if not dw_shapes:
+        raise AssertionError("no path launched K3 or K5")
+    del dw_shapes
     k7_row, paths["brick"] = phase_brick(batch, device, gen)
     rows.append(k7_row)
     # The kernels line lists every ported kernel with its launches summed

@@ -15,52 +15,53 @@
 // K1's flat form.  x, dout, feats and wt are in T (f32 or bf16); every
 // product is accumulated in f32.
 //
-// K2 has two bodies; the element type selects one, and the caller names
-// the tiles (tdwss_torch/ops/windowed.py, bwd_tile).
+// K2 and K3/K5 have two bodies each; the element type selects one, and
+// the caller names the tiles (tdwss_torch/ops/windowed.py, bwd_tile).
 //
-// * bf16, the tensor-core body (windowed_mma.cuh), two launches and the
-//   reduction:
-//   - dfeats is K1's function with the cotangent as the gathered source
-//     and wt as the weights, so it runs K1's body, fwd_mma_kernel<N>
-//     (cp.async rings of the used taps' 8-channel items, ldmatrix and
-//     mma.sync m16n8k16), N the narrowest of 32-256 that covers Cin;
-//   - dW runs dw_mma_kernel: per block one chunk of rows and a TM x TN
-//     tile of (Cin, Cout) in {32, 64}^2; per tap and 128 rows, the live
-//     (v, src) entries are ballot-compacted in row order, feats[v] (dense)
-//     and dout[src] (gathered) are copied by 16-byte cp.async into a
+// * bf16, the tensor-core bodies (windowed_mma.cuh):
+//   - K2's dfeats is K1's function with the cotangent as the gathered
+//     source and wt as the weights, so it runs K1's body,
+//     fwd_mma_kernel<N> (cp.async rings of the used taps' 8-channel
+//     items, ldmatrix and mma.sync m16n8k16), N the narrowest of 32-256
+//     that covers Cin;
+//   - every dW runs dw_mma_kernel: per block one chunk of rows and a
+//     TM x TN tile of (C, Cout) in {32, 64}^2; per tap and 128 rows, the
+//     live (v, src) entries are ballot-compacted in row order, the dense
+//     rows and the gathered rows are copied by 16-byte cp.async into a
 //     two-stage ring in 16-entry groups (only the last group of each
 //     128-row step is zero-filled, so dead entries cost no copy), and
-//     multiplied with mma.sync from ldmatrix.trans fragments;
+//     multiplied with mma.sync from ldmatrix.trans fragments.  K2 gathers
+//     the cotangent (on the right, feats dense); K3/K5 gather x (on the
+//     left, dout dense), as K6's dW does, K3 in the sub form and K5 in
+//     the flat form (sentinel = window);
 //   - the per-chunk partials are summed in chunk order by
-//     reduce_partials, which applies the flip (no atomics: dW repeats bit
-//     for bit).
-//   The two products read the gathered cotangent separately (the second
+//     reduce_partials, which applies K2's flip (no atomics: dW repeats
+//     bit for bit).
+//   K2's two products read the gathered cotangent separately (the second
 //   read mostly hits L2); a fused form sharing the staged tile was not
 //   built.  The stem's 3-channel primal rows (C = 3, dW only) are staged
 //   by 2-byte loads.
 // * f32, the first design on the CUDA cores (TF32 would break the f32
-//   checks, 1e-4 of max|plain|): one launch whose first blocks compute
-//   dfeats tiles with gather_gemm_block (windowed_common.cuh) and whose
-//   other blocks compute the dW partials with dw_block below, then the
-//   reduction.
-//
-// K3/K5 run dw_block (their bf16 too): one block per (chunk of rows,
-// TM x TN tile); per tap the chunk's live entries are compacted, BK
-// entries' rows of both operands are staged in shared memory as f32, and
-// an f32 micro-tile per thread accumulates on the CUDA cores; per-chunk
-// partials and the same fixed-order reduction.
+//   checks, 1e-4 of max|plain|): dw_block below, one block per (chunk of
+//   rows, TM x TN tile); per tap the chunk's live entries are compacted,
+//   BK entries' rows of both operands are staged in shared memory as
+//   f32, and an f32 micro-tile per thread accumulates; per-chunk partials
+//   and the same fixed-order reduction.  K2's launch puts dfeats tiles
+//   (gather_gemm_block, windowed_common.cuh) in its first blocks and the
+//   dW partials in the others; K3/K5's launch has dW blocks only.
 //
 // Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16 dense): the larger of
 //   bytes / 3.35e12 with bytes = each distinct gathered row, each dense
-//       row, rb, starts, offsets, wt and both outputs once, and
+//   row, rb, starts, offsets, wt and both outputs once, and
 //   (2 per product) * (live entries) * c * cout / 989e12.
 // At the bench widths the bytes term dominates.  The floor in practice
 // is latency: every block resolves its rows' sources tap by tap (the 85
 // MB rulebook at level 0), and about 83% of level-0 (row, tap) entries
-// are dead.  What the first design lost in bf16 (5.68 ms at level 0, 32
-// -> 32, against K1 + K3 = 0.52 + 2.27 ms): dfeats on K1's first f32
-// body (3.43 ms alone), and dW as f32 FMAs from a one-deep shared stage
-// of 2-byte loads, with two barriers per 32 entries.
+// are dead.  What the first design lost in bf16 (K2 5.68 ms at level 0,
+// 32 -> 32, against K1 + K3 = 0.52 + 2.27 ms; K3 2.34 ms): dfeats on
+// K1's first f32 body (3.43 ms alone), and dW as f32 FMAs from a
+// one-deep shared stage of 2-byte loads, with two barriers per 32
+// entries.
 
 #include "windowed_mma.cuh"
 
@@ -267,37 +268,21 @@ DwGrid dw_grid(int nchunk, int64_t v_out, int cl, int cr, int tm, int tn) {
   return g;
 }
 
-template <typename T, bool SUB, int TM, int TN>
+// K3 / K5 on the CUDA cores (f32), TM x TM tiles.
+template <bool SUB, int TM>
 int launch_dw(const void* x, int64_t v_src, int c, const void* starts,
               const void* soff, const void* rb, int64_t rsk, int64_t rsv,
               int k, const void* dout, int cout, int64_t v_out, int tile,
               int nwin, int sub, int sentinel, int nchunk, float* part,
-              float* dw, cudaStream_t stream) {
-  const DwGrid g = dw_grid(nchunk, v_out, c, cout, TM, TN);
-  windowed_dw_kernel<T, SUB, TM, TN><<<g.blocks(), NT, 0, stream>>>(
-      static_cast<const T*>(x), v_src, c, static_cast<const int32_t*>(starts),
-      static_cast<const int32_t*>(soff), static_cast<const int32_t*>(rb), rsk,
-      rsv, k, static_cast<const T*>(dout), cout, v_out, tile, nwin, sub,
+              cudaStream_t stream) {
+  const DwGrid g = dw_grid(nchunk, v_out, c, cout, TM, TM);
+  windowed_dw_kernel<float, SUB, TM, TM><<<g.blocks(), NT, 0, stream>>>(
+      static_cast<const float*>(x), v_src, c,
+      static_cast<const int32_t*>(starts), static_cast<const int32_t*>(soff),
+      static_cast<const int32_t*>(rb), rsk, rsv, k,
+      static_cast<const float*>(dout), cout, v_out, tile, nwin, sub,
       sentinel, g, part);
-  const int err = static_cast<int>(cudaGetLastError());
-  if (err != 0) return err;
-  return tdwss::reduce_partials(part, nchunk, k,
-                                static_cast<int64_t>(c) * cout, 0, dw, stream);
-}
-
-template <typename T, bool SUB>
-int dispatch_dw(const void* x, int64_t v_src, int c, const void* starts,
-                const void* soff, const void* rb, int64_t rsk, int64_t rsv,
-                int k, const void* dout, int cout, int64_t v_out, int tile,
-                int nwin, int sub, int sentinel, int nchunk, float* part,
-                float* dw, cudaStream_t stream) {
-  if (c <= 32 && cout <= 32)
-    return launch_dw<T, SUB, 32, 32>(x, v_src, c, starts, soff, rb, rsk, rsv,
-                                     k, dout, cout, v_out, tile, nwin, sub,
-                                     sentinel, nchunk, part, dw, stream);
-  return launch_dw<T, SUB, 64, 64>(x, v_src, c, starts, soff, rb, rsk, rsv, k,
-                                   dout, cout, v_out, tile, nwin, sub,
-                                   sentinel, nchunk, part, dw, stream);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int TM, int TN>
@@ -339,41 +324,42 @@ extern "C" {
 // K3 (soff != NULL, sentinel = subwin) / K5 (soff == NULL, sentinel =
 // window): dw (k, c, cout) f32 from x (v_src, c) and dout (v_out, cout),
 // both in dtype (0 = float32, 1 = bfloat16).  part is f32 scratch of
-// nchunk * k * c * cout elements.  Returns cudaGetLastError() after the
-// launches (0 on success).
+// nchunk * k * c * cout elements.  The tiles: bf16 takes the tensor-core
+// dW tile with (tm, tn) in {32, 64}^2; f32 the CUDA-core body with tm =
+// tn in {32, 64}.  Returns the first CUDA error of the launches (0 on
+// success).
 int tdwss_windowed_dw(const void* x, int64_t v_src, int c, const void* starts,
                       const void* soff, const void* rb, int64_t rb_stride_k,
                       int64_t rb_stride_v, int k, const void* dout, int cout,
                       int64_t v_out, int tile, int nwin, int sub,
                       int sentinel, int nchunk, void* part, void* dw,
-                      int dtype, void* stream) {
+                      int dtype, int tm, int tn, void* stream) {
   if (bad_args(v_out, k, nwin, nchunk))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* pp = static_cast<float*>(part);
-  float* dp = static_cast<float*>(dw);
-  const bool sub_form = soff != nullptr;
-  if (dtype == 0)
-    return sub_form
-               ? dispatch_dw<float, true>(x, v_src, c, starts, soff, rb,
-                                          rb_stride_k, rb_stride_v, k, dout,
-                                          cout, v_out, tile, nwin, sub,
-                                          sentinel, nchunk, pp, dp, s)
-               : dispatch_dw<float, false>(x, v_src, c, starts, soff, rb,
-                                           rb_stride_k, rb_stride_v, k, dout,
-                                           cout, v_out, tile, nwin, sub,
-                                           sentinel, nchunk, pp, dp, s);
-  if (dtype == 1)
-    return sub_form
-               ? dispatch_dw<__nv_bfloat16, true>(
-                     x, v_src, c, starts, soff, rb, rb_stride_k, rb_stride_v,
-                     k, dout, cout, v_out, tile, nwin, sub, sentinel, nchunk,
-                     pp, dp, s)
-               : dispatch_dw<__nv_bfloat16, false>(
-                     x, v_src, c, starts, soff, rb, rb_stride_k, rb_stride_v,
-                     k, dout, cout, v_out, tile, nwin, sub, sentinel, nchunk,
-                     pp, dp, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  int err;
+  if (dtype == 1) {
+    err = tdwss::dw_mma(x, c, dout, cout, starts, soff, rb, rb_stride_k,
+                        rb_stride_v, k, v_src, v_out, tile, nwin, sub,
+                        sentinel, nchunk, tm, tn, 1, pp, s);
+  } else if (dtype == 0 && tm == tn && (tm == 32 || tm == 64)) {
+#define TDWSS_K3_F32(SUB_, TM_)                                             \
+  launch_dw<SUB_, TM_>(x, v_src, c, starts, soff, rb, rb_stride_k,          \
+                       rb_stride_v, k, dout, cout, v_out, tile, nwin, sub,  \
+                       sentinel, nchunk, pp, s)
+    err = soff != nullptr
+              ? (tm == 32 ? TDWSS_K3_F32(true, 32) : TDWSS_K3_F32(true, 64))
+              : (tm == 32 ? TDWSS_K3_F32(false, 32)
+                          : TDWSS_K3_F32(false, 64));
+#undef TDWSS_K3_F32
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (err != 0) return err;
+  return tdwss::reduce_partials(pp, nchunk, k,
+                                static_cast<int64_t>(c) * cout, 0,
+                                static_cast<float*>(dw), s);
 }
 
 // K2 (sub form, sentinel = subwin): dfeats (v_out, cin) in dtype (NULL

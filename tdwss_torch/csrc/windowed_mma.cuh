@@ -8,7 +8,8 @@
 //   function with the cotangent as x and the transposed weights as w;
 //   launched through windowed_fwd_mma();
 // * dw_mma_kernel, the weight gradient over compacted live entries of K2
-//   and K6 (their bf16 dW), launched through dw_mma().
+//   and K6 (their bf16 dW) and the whole of K3/K5 in bf16, launched
+//   through dw_mma().
 //
 // The design of each is described above its kernel; windowed_fwd.cu's
 // header note gives the forward's in full.
@@ -473,15 +474,19 @@ inline int windowed_fwd_mma(const void* x, int64_t v_src, int c,
 }
 
 // --------------------------------------------------------------------------
-// Weight gradient on the tensor cores (the bf16 dW of K2 and K6)
+// Weight gradient on the tensor cores (the bf16 dW of K2, K3/K5 and K6)
 // --------------------------------------------------------------------------
 //
 //   part[chunk][a][c][o] = sum over the chunk's live (v, a) of
 //                          left[lrow][c] * right[rrow][o]
 //   K2 (GATHER_LEFT false): lrow = v, rrow = src(v, a) (feats dense, the
 //       cotangent gathered);
-//   K6 (GATHER_LEFT true):  lrow = src(v, a), rrow = v (feats gathered,
-//       the cotangent dense).
+//   K3/K5, K6 (GATHER_LEFT true): lrow = src(v, a), rrow = v (the primal
+//       rows gathered, the cotangent dense).
+// SUB selects the sub form (src = starts + soff + local, sentinel subwin;
+// K2, K3, K6) or the flat form (src = starts + local, sentinel window;
+// K5), as K1's body does for K4; the flat form is instantiated with the
+// source gathered on the left only.
 //
 // A block owns one chunk of rows and one TM x TN tile of (cl, cr), TM and
 // TN in {32, 64}, with 4 warps.  It walks "steps", each one tap over 128
@@ -542,7 +547,7 @@ struct DwMmaArgs {
   const __nv_bfloat16* right;    // (rows, cr)
   int cl, cr;
   const int32_t* starts;
-  const int32_t* soff;
+  const int32_t* soff;           // nullptr: the flat form (K5)
   const int32_t* rb;
   int rb_stride_k, rb_stride_v;
   int k, v_src, v_out, tile, nwin, sub, sentinel;
@@ -580,7 +585,7 @@ __device__ __forceinline__ void stage_chunk(uint32_t dst,
                : "memory");
 }
 
-template <int TM, int TN, bool GATHER_LEFT>
+template <int TM, int TN, bool GATHER_LEFT, bool SUB>
 __global__ void __launch_bounds__(DW_THREADS)
     dw_mma_kernel(const DwMmaArgs p) {
   constexpr int NS = DW_STAGES;
@@ -630,8 +635,8 @@ __global__ void __launch_bounds__(DW_THREADS)
       if (v < r1) {
         const int g = a % p.nwin;
         q.loc = __ldg(p.rb + a * p.rb_stride_k + v * p.rb_stride_v);
-        q.base = __ldg(p.starts + (v / p.tile) * p.nwin + g) +
-                 __ldg(p.soff + (v / p.sub) * p.nwin + g);
+        q.base = __ldg(p.starts + (v / p.tile) * p.nwin + g);
+        if (SUB) q.base += __ldg(p.soff + (v / p.sub) * p.nwin + g);
       }
     }
     return q;
@@ -786,38 +791,41 @@ __global__ void __launch_bounds__(DW_THREADS)
   cp_async_wait<0>();
 }
 
-template <int TM, int TN, bool GATHER_LEFT>
+template <int TM, int TN, bool GATHER_LEFT, bool SUB>
 int launch_dw_mma_tile(const DwMmaArgs& p, int nchunk, cudaStream_t stream) {
   static bool attr_set = false;
   constexpr int smem = dw_smem_bytes(TM, TN);
   if (!attr_set) {
     const cudaError_t e = cudaFuncSetAttribute(
-        dw_mma_kernel<TM, TN, GATHER_LEFT>,
+        dw_mma_kernel<TM, TN, GATHER_LEFT, SUB>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
     attr_set = true;
   }
   const int64_t blocks = static_cast<int64_t>(nchunk) * p.ct * p.ot;
   if (blocks > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  dw_mma_kernel<TM, TN, GATHER_LEFT>
+  dw_mma_kernel<TM, TN, GATHER_LEFT, SUB>
       <<<static_cast<unsigned>(blocks), DW_THREADS, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The tensor-core dW partials of K2 (gather_left = 0: left = feats
-// (v_out, cl) dense, right = dout (v_src, cr) gathered) or K6
-// (gather_left = 1: left = feats (v_src, cl) gathered, right = dout
-// (>= v_out, cr) dense), both bf16, for the (tm, tn) tile, into part
-// (nchunk, k, cl, cr) f32; sub form (soff != NULL).  Returns
-// cudaGetLastError() after the launch (0 on success).
+// The tensor-core dW partials, both operands bf16, for the (tm, tn) tile,
+// into part (nchunk, k, cl, cr) f32:
+// * gather_left = 0, K2: left = feats (v_out, cl) dense, right = dout
+//   (v_src, cr) gathered; sub form only;
+// * gather_left = 1, K3/K5 and K6: left = the primal rows (v_src, cl)
+//   gathered, right = dout (>= v_out, cr) dense; the sub form where soff
+//   != NULL (K3, K6), else the flat form (K5: sentinel = window).
+// Returns cudaGetLastError() after the launch (0 on success).
 inline int dw_mma(const void* left, int cl, const void* right, int cr,
                   const void* starts, const void* soff, const void* rb,
                   int64_t rb_stride_k, int64_t rb_stride_v, int k,
                   int64_t v_src, int64_t v_out, int tile, int nwin, int sub,
                   int sentinel, int nchunk, int tm, int tn, int gather_left,
                   float* part, cudaStream_t stream) {
-  if (soff == nullptr || cl <= 0 || cr <= 0 || v_out > INT32_MAX ||
-      v_src > INT32_MAX ||
+  const bool sub_form = soff != nullptr;
+  if ((!sub_form && !gather_left) || cl <= 0 || cr <= 0 ||
+      v_out > INT32_MAX || v_src > INT32_MAX ||
       (k - 1) * rb_stride_k + (v_out - 1) * rb_stride_v > INT32_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
   DwMmaArgs p;
@@ -843,10 +851,15 @@ inline int dw_mma(const void* left, int cl, const void* right, int cr,
   p.lvec = cl % 8 == 0 && reinterpret_cast<uintptr_t>(left) % 16 == 0;
   p.rvec = cr % 8 == 0 && reinterpret_cast<uintptr_t>(right) % 16 == 0;
   p.part = part;
-#define TDWSS_DW_TILE(TM_, TN_)                                           \
-  if (tm == TM_ && tn == TN_)                                             \
-    return gather_left ? launch_dw_mma_tile<TM_, TN_, true>(p, nchunk, stream) \
-                       : launch_dw_mma_tile<TM_, TN_, false>(p, nchunk, stream);
+#define TDWSS_DW_TILE(TM_, TN_)                                          \
+  if (tm == TM_ && tn == TN_) {                                          \
+    if (!gather_left)                                                    \
+      return launch_dw_mma_tile<TM_, TN_, false, true>(p, nchunk, stream); \
+    return sub_form                                                      \
+               ? launch_dw_mma_tile<TM_, TN_, true, true>(p, nchunk, stream) \
+               : launch_dw_mma_tile<TM_, TN_, true, false>(p, nchunk,   \
+                                                           stream);     \
+  }
   TDWSS_DW_TILE(32, 32)
   TDWSS_DW_TILE(32, 64)
   TDWSS_DW_TILE(64, 32)

@@ -24,11 +24,11 @@ nothing.  Every product accumulates in f32.  The TPU lane padding
 (``pad_w9``, the ``C3p`` axis) and lane packing are dropped: weights are
 ``(K, C, Cout)`` and dW comes back as ``(K, C, Cout)``.
 
-K1/K4, K2 and K6 have two bodies each, chosen by the dtype
-(:func:`fwd_tile`, :func:`bwd_tile`): bf16 runs on the tensor cores
-(K2's and K6's dfeats on K1's body, their dW on the tensor-core dW tile,
+Every kernel K1-K6 has two bodies, chosen by the dtype (:func:`fwd_tile`,
+:func:`bwd_tile`): bf16 runs on the tensor cores (K2's and K6's dfeats
+on K1's body; every dW, K3/K5's included, on the tensor-core dW tile;
 both in ``csrc/windowed_mma.cuh``), f32 on the CUDA cores;
-``body_launches`` counts their launches per body.  K3/K5 have one body.
+``body_launches`` counts their launches per body.
 A CUDA tensor launches the kernels in ``tdwss_torch/csrc/`` (K1/K4 in
 ``windowed_fwd.cu``, K2/K3/K5 in ``windowed_bwd.cu``, K6 in
 ``windowed_bwd_sub.cu``; built with ``nvcc``
@@ -76,11 +76,11 @@ K6 = "windowed_bwd_sub"
 # libraries report theirs, and the forward launch checks against it).
 KMAX = 32
 launches: Dict[str, int] = {K1: 0, K2: 0, K3: 0, K4: 0, K5: 0, K6: 0}
-# The two bodies of K1/K4, K2 and K6: bf16 runs on the tensor cores
-# (cp.async gathers, mma.sync; csrc/windowed_mma.cuh), f32 on the CUDA
-# cores.  Their launches are also counted per body, "<kernel>:<body>".
+# The two bodies of every kernel: bf16 runs on the tensor cores (cp.async
+# gathers, mma.sync; csrc/windowed_mma.cuh), f32 on the CUDA cores.
+# Launches are also counted per body, "<kernel>:<body>".
 BODY_MMA, BODY_FMA = "mma", "fma"
-body_launches: Dict[str, int] = {f"{k}:{b}": 0 for k in (K1, K4, K2, K6)
+body_launches: Dict[str, int] = {f"{k}:{b}": 0 for k in launches
                                  for b in (BODY_MMA, BODY_FMA)}
 # The forward body's column tiles (windowed_mma.cuh derives the rest of
 # its tiling from the tile); the tensor-core dW tile's sides.
@@ -89,8 +89,9 @@ _DW_MMA_SIDES = (32, 64)
 
 # dW partials: one block per (row chunk, C tile, Cout tile); enough
 # chunks for ~4 blocks per SM of an H100 (132 SMs), at least 256 rows a
-# chunk, at most 64 MiB of f32 partials (the tiles: K3/K5 and K2's f32
-# body 32 x 32 or 64 x 64, the tensor-core dW tile from bwd_tile).
+# chunk, at most 64 MiB of f32 partials (the tiles from bwd_tile: the
+# CUDA-core tile of K2's and K3/K5's f32 body, 32 x 32 or 64 x 64, or the
+# tensor-core dW tile).
 _TARGET_BLOCKS = 4 * 132
 _MIN_CHUNK_ROWS = 256
 _PART_BYTES = 64 << 20
@@ -125,7 +126,8 @@ _ARGTYPES = {
         _P, _P, _P, _I64, _I64,  # starts, soff, rb, rb strides
         _I, _P, _I, _I64,        # k, dout, cout, v_out
         _I, _I, _I, _I, _I,      # tile, nwin, sub, sentinel, nchunk
-        _P, _P, _I, _P,          # part, dw, dtype, stream
+        _P, _P, _I,              # part, dw, dtype
+        _I, _I, _P,              # tm, tn, stream
     ],
     "tdwss_windowed_bwd_gather": [
         _P, _I64, _I,            # dout, v_src, cout
@@ -299,24 +301,26 @@ def _on_cpu(t) -> bool:
 
 
 def _fma_dw_tile(c, cout):
-    """The CUDA-core dW tile (``dw_block`` in windowed_bwd.cu: K3/K5 and
-    K2's f32 body): 32 x 32 where both widths are at most 32, else
+    """The CUDA-core dW tile (``dw_block`` in windowed_bwd.cu: the f32
+    body of K2 and K3/K5): 32 x 32 where both widths are at most 32, else
     64 x 64."""
     t = 32 if (c <= 32 and cout <= 32) else 64
     return {"tm": t, "tn": t}
 
 
-def _nchunks(v_out, c, cout, k, tile=None, part_bytes=_PART_BYTES):
+def _nchunks(v_out, c, cout, k, tile=None, part_bytes=None):
     """Row chunks of the dW partials (see the module constants) for the
     blocks of ``tile`` (a :func:`bwd_tile` dict: ``tm`` x ``tn`` tiles of
     (C, Cout), or ``tm`` input channels with every output channel where
-    it has no ``tn``); None is the K3/K5 tile."""
+    it has no ``tn``); None is the CUDA-core tile of (C, Cout).  The
+    partials' cap ``part_bytes`` defaults to ``_PART_BYTES`` as it is when
+    called."""
     tile = tile or _fma_dw_tile(c, cout)
     tiles = -(-c // tile["tm"]) * (-(-cout // tile["tn"]) if "tn" in tile
                                    else 1)
     want = -(-_TARGET_BLOCKS // tiles)
     by_rows = max(1, v_out // _MIN_CHUNK_ROWS)
-    by_mem = max(1, part_bytes // (k * c * cout * 4))
+    by_mem = max(1, (part_bytes or _PART_BYTES) // (k * c * cout * 4))
     return max(1, min(want, by_rows, by_mem, v_out))
 
 
@@ -369,26 +373,30 @@ def fwd_tile(c: int, cout: int, k: int, dtype) -> Dict[str, object]:
 
 def bwd_tile(kernel: str, cin: int, cout: int, k: int,
              dtype) -> Dict[str, object]:
-    """K2's or K6's body and tiles for (Cin, Cout, K, dtype), as the
-    wrapper launches them and as the dW partials are sized.
+    """The body and tiles of a backward kernel (K2, K3, K5 or K6) for
+    (Cin, Cout, K, dtype), as the wrapper launches them and as the dW
+    partials are sized; for K3/K5, Cin is the gathered x's width C.
 
-    bf16: ``body`` BODY_MMA; ``n``, the dfeats column tile (K1's body over
-    an output of width Cin: :func:`fwd_tile` of Cin); ``tm`` x ``tn``,
-    the tensor-core dW tile of (Cin, Cout), each side 32 where the width
-    is at most 32, else 64.  f32: ``body`` BODY_FMA with the CUDA-core
-    tiles: K2 ``tm`` = ``tn`` = 32 where both widths are at most 32, else
-    64; K6 ``tm`` 32 input channels per block and ``slab``, the output
-    channels per pass (64, 128 or 256)."""
-    if kernel not in (K2, K6):
-        raise ValueError(f"bwd_tile takes {K2} or {K6}, not {kernel}")
+    bf16: ``body`` BODY_MMA; ``tm`` x ``tn``, the tensor-core dW tile of
+    (Cin, Cout), each side 32 where the width is at most 32, else 64; for
+    K2 and K6 also ``n``, the dfeats column tile (K1's body over an output
+    of width Cin: :func:`fwd_tile` of Cin).  f32: ``body`` BODY_FMA with
+    the CUDA-core tiles: K2 and K3/K5 ``tm`` = ``tn`` = 32 where both
+    widths are at most 32, else 64; K6 ``tm`` 32 input channels per block
+    and ``slab``, the output channels per pass (64, 128 or 256)."""
+    if kernel not in (K2, K3, K5, K6):
+        raise ValueError(f"bwd_tile takes {K2}, {K3}, {K5} or {K6}, not "
+                         f"{kernel}")
     if dtype not in _DTYPES:
         raise TypeError(f"dtype {dtype} not in {list(_DTYPES)}")
     if dtype == torch.bfloat16:
         tm, tn = (next((s for s in _DW_MMA_SIDES if w <= s),
                        _DW_MMA_SIDES[-1]) for w in (cin, cout))
+        if kernel in (K3, K5):
+            return {"body": BODY_MMA, "tm": tm, "tn": tn}
         return {"body": BODY_MMA, "n": fwd_tile(cout, cin, k, dtype)["n"],
                 "tm": tm, "tn": tn}
-    if kernel == K2:
+    if kernel != K6:
         return {"body": BODY_FMA, **_fma_dw_tile(cin, cout)}
     slab = 64 if cout <= 64 else 128 if cout <= 128 else 256
     return {"body": BODY_FMA, "tm": _SUB_TM, "slab": slab}
@@ -534,10 +542,13 @@ def _launch_dw(name, feats3, starts, soff, rb_local_t, dout, tile, sub,
     k, v_out = rb_local_t.shape
     sk, sv = _rb_strides(rb_local_t)
     c, cout = feats3.shape[1], dout.shape[1]
+    plan = bwd_tile(name, c, cout, k, feats3.dtype)
+    if plan["body"] == BODY_MMA:
+        _check_mma_sizes(v_out, feats3.shape[0], rb_local_t)
     dout = dout.to(feats3.dtype).contiguous()
     starts = starts.contiguous()
     soff = soff.contiguous() if soff is not None else None
-    nchunk = _nchunks(v_out, c, cout, k)
+    nchunk = _nchunks(v_out, c, cout, k, plan)
     part = torch.empty((nchunk, k, c, cout), dtype=torch.float32,
                        device=feats3.device)
     dw = torch.empty((k, c, cout), dtype=torch.float32, device=feats3.device)
@@ -547,10 +558,11 @@ def _launch_dw(name, feats3, starts, soff, rb_local_t, dout, tile, sub,
         soff.data_ptr() if soff is not None else None, rb_local_t.data_ptr(),
         sk, sv, k, dout.data_ptr(), cout, v_out, tile, nwin, sub, sentinel,
         nchunk, part.data_ptr(), dw.data_ptr(), _DTYPES[feats3.dtype],
-        stream)
+        plan["tm"], plan["tn"], stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
     launches[name] += 1
+    body_launches[f"{name}:{plan['body']}"] += 1
     return dw
 
 
