@@ -11,8 +11,10 @@ SparseConvFCNetNarrow, m=16, planes 16..256, 5 levels;
 ``..._finer.yaml``: SparseConvFCNet, m=16, 7 levels), all on the bench
 batch (5 synthetic scenes of 150,000 points, ``max_points`` 786,432, in
 place of the configs' 6 scenes in 4,194,304) with seeded random weights,
-and drives the experimental brick engine at the bench level 0, and
-checks them:
+drives the experimental brick engine at the bench level 0, and drives
+the weak-supervision loop through the port's entry points (``Trainer``,
+the pseudo-label stage, ``FullySupervised`` and the train CLI) at
+SparseConvFCNet's width, and checks them:
 
 1. device: the card's name and power limit, torch and CUDA versions;
 2. build: the kernels' four shared libraries (nvcc: forward K1/K4,
@@ -83,9 +85,36 @@ checks them:
    (samples of BACK_TO_BACK calls back to back) beside
    ``torch.index_select`` and its bound, and at 30-byte rows (2-byte
    copies), bit for bit;
-11. one JSON line with the numbers of every ported kernel (K1-K7, each
-    with its launches over the main paths and the brick path, 0
-    included), the card line from ``nvidia-smi``, and the result line.
+11. profile: one warm UNet training step with
+    ``torch.cuda.set_sync_debug_mode("warn")`` (every synchronising call,
+    by file:line), then one traced by ``tdwss_torch.utils.profiling``
+    (torch.profiler, host and card): the top device operations by total
+    time, the device's idle share over the traced window, and the device
+    time by category (the hand-written kernels, the forward's batch norm,
+    the spill tiers' segmented sums, the conv backward around the
+    kernels, the kernel wrappers' own ops, Adam, casts and copies, other
+    forward and backward ops); the trace goes to
+    ``<--trace-dir>/trace.json.gz`` (default ``exp/chip_smoke/``);
+12. loop, in a temporary working directory, on 10 synthetic train scenes
+    of 150,000 points and the 5 val scenes: a ``Trainer`` over
+    ``configs/3DUNetWithText_pseudolabel_finer.yaml`` (cut to the bench
+    batch) fits one epoch (2 steps and the epoch-1 validation) and a
+    second ``Trainer`` resumes at epoch 2 with its state bit for bit;
+    ``threshold_sweep`` and ``generate_pseudo_labels`` at 0.71; a
+    ``Trainer`` over ``..._fcnet_with_pseudo.yaml`` (FullySupervised,
+    cut the same way) fits one epoch on those labels, and its epoch 2 is
+    timed (wall seconds per step through the prefetching loader, device
+    seconds per step by CUDA events) against the host's seconds per batch
+    planned serially; the launch counts over these are read and K1 and
+    K2 must have run, every launch on the tensor-core body; one
+    FullySupervised step goes through the checks of 6 with two bf16 steps'
+    gradients bit for bit, and ``devoxelize_seg``'s backward repeats bit
+    for bit at the head's width; last, ``python -m tdwss_torch.cli.train
+    --config configs/smoke_cpu.yaml --epochs 1`` runs on the card as a
+    subprocess and must print its mIoU;
+13. one JSON line with the numbers of every ported kernel (K1-K7, each
+    with its launches over the main paths, the loop and the brick path,
+    0 included), the card line from ``nvidia-smi``, and the result line.
 
 Any failure raises and the exit code is not 0.  Without CUDA, or without
 the rest of the repository beside this file, it exits non-zero and prints
@@ -110,6 +139,7 @@ T0 = time.perf_counter()
 
 NUM_SCENES = 5
 POINTS_PER_SCENE = 150_000
+LOOP_SCENES = 10                   # train scenes of the loop phase
 MAX_POINTS = 786_432
 VAL_REPS = 2
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
@@ -212,6 +242,7 @@ def narrow_config():
     return Config(
         training_name="scene_level_with_fcnet_narrower",
         model_name="MultiLabel", label="scene_level", has_text=False,
+        epochs=1024,
         pointcloud_data=PointcloudDataConfig(
             scale=20, val_reps=1, batch_size=6, elastic_deformation=True),
         pointcloud_model=PointcloudModelConfig(
@@ -233,6 +264,7 @@ def fcnet_config():
     return Config(
         training_name="scene_level_with_fcnet_baseline_finer",
         model_name="MultiLabel", label="scene_level", has_text=False,
+        epochs=1024,
         pointcloud_data=PointcloudDataConfig(
             scale=50, val_reps=1, batch_size=6, elastic_deformation=True),
         pointcloud_model=PointcloudModelConfig(
@@ -976,12 +1008,13 @@ def plan_train_batch(cfg, scenes, label):
 
 
 def phase_train(label, cfg, planned, host, host_s, device, steps,
-                full_checks):
+                full_checks, repro=False):
     """``steps`` training steps of ``cfg`` on one planned batch, launches
     against the plans' routing, and one step's loss and layer-by-layer
     backward against the plain versions.  With ``full_checks`` (the
-    bench UNet) also: two bf16 steps' gradients bit for bit, and the f32
-    step (layer by layer, loss, gradients per tensor, bit for bit)."""
+    bench UNet) or ``repro`` also two bf16 steps' gradients bit for bit;
+    with ``full_checks`` also the f32 step (layer by layer, loss,
+    gradients per tensor, bit for bit)."""
     import torch
 
     from tdwss_torch.data.plans import slim_batch_for_train
@@ -1083,7 +1116,7 @@ def phase_train(label, cfg, planned, host, host_s, device, steps,
     lk, gk = loss_and_grads(m16, cfg, batch)
     lp, _ = loss_and_grads(m16, cfg, batch, plain_versions())
     check_loss("bf16", lk, lp, LOSS_RTOL)
-    if not full_checks:
+    if not (full_checks or repro):
         return launches
 
     # bf16: two steps through the kernels, every gradient bit for bit
@@ -1097,6 +1130,8 @@ def phase_train(label, cfg, planned, host, host_s, device, steps,
         raise AssertionError("bf16 training gradients through the kernels "
                              "are not reproducible")
     del m16, gk, gk2
+    if not full_checks:
+        return launches
     # f32: layer by layer, the loss, the gradients per tensor, bit for bit
     cfg32 = copy.deepcopy(cfg)
     cfg32.engine.compute_dtype = "float32"
@@ -1119,6 +1154,224 @@ def phase_train(label, cfg, planned, host, host_s, device, steps,
                              "disagree with the plain versions or are not "
                              "reproducible")
     return launches
+
+
+def list_syncs(fn):
+    """Run ``fn`` with ``torch.cuda.set_sync_debug_mode("warn")`` and
+    return {"[thread] file:line <- caller <- ...": count} of every
+    synchronising call it made (the innermost frames, the warning's own
+    and the warnings module's dropped; repository paths relative)."""
+    import threading
+    import traceback
+    import warnings
+
+    import torch
+
+    seen = {}
+
+    def short(path):
+        return (os.path.relpath(path, HERE) if path.startswith(HERE)
+                else "/".join(path.split("/")[-3:]))
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        frames = [f for f in traceback.extract_stack()[:-1]
+                  if not f.filename.endswith("warnings.py")]
+        where = (f"[{threading.current_thread().name}] "
+                 + " <- ".join(f"{short(f.filename)}:{f.lineno}"
+                               for f in reversed(frames[-8:]))
+                 + f" (warned at {short(filename)}:{lineno})")
+        seen[where] = seen.get(where, 0) + 1
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        # switching the mode on warns once by itself: record only fn's
+        torch.cuda.set_sync_debug_mode("warn")
+        warnings.showwarning = record
+        try:
+            fn()
+        finally:
+            warnings.showwarning = lambda *a, **k: None
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return seen
+
+
+# Device-time categories of the profile phase: record_function scopes put
+# around the forward's parts (by patching), and the scopes PyTorch itself
+# records (the optimiser's step, autograd's backward functions).
+_OUR_KERNELS = ("windowed_", "fwd_mma_kernel", "dw_mma_kernel",
+                "reduce_partials_kernel", "block_gather_kernel")
+
+
+def _category(event, kernel_name):
+    if any(k in kernel_name for k in _OUR_KERNELS):
+        return "hand-written kernels (K1-K7)"
+    e = event
+    while e is not None:
+        name = e.name
+        if name.startswith("smoke:"):
+            return name[len("smoke:"):]
+        if name.startswith("Optimizer.step") or "_foreach_" in name:
+            return "Adam"
+        if name.startswith("Optimizer.zero_grad"):
+            return "zero_grad"
+        e = e.cpu_parent
+    name = event.name
+    if name in ("aten::copy_", "aten::_to_copy", "aten::to"):
+        return "casts and copies (elsewhere)"
+    e = event
+    while e is not None:
+        if "evaluate_function" in e.name or "Backward" in e.name:
+            return "backward, other ops"
+        e = e.cpu_parent
+    return "forward, other ops"
+
+
+@contextlib.contextmanager
+def profile_scopes():
+    """Wrap the forward's batch norms, the spill tiers' segmented sums,
+    the conv routes' backward functions and the kernel wrappers in
+    record_function scopes named ``smoke:<category>``."""
+    import torch
+
+    from tdwss_torch.models import layers
+    from tdwss_torch.ops import sparse_conv
+
+    def scoped(fn, label):
+        def inner(*a, **kw):
+            with torch.profiler.record_function("smoke:" + label):
+                return fn(*a, **kw)
+        return inner
+
+    targets = [(layers.MaskedBatchNorm, "forward", "batch norm forward"),
+               (sparse_conv, "_segment_sum", "spill tiers' segmented sums"),
+               (sparse_conv, "_subm_w27_backward",
+                "conv backward around the kernels"),
+               (sparse_conv, "_wg_backward",
+                "conv backward around the kernels")]
+    targets += [(sparse_conv, n, "kernel wrappers' own ops")
+                for n in KERNEL_ENTRIES]
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in targets]
+    for obj, name, label in targets:
+        setattr(obj, name, scoped(getattr(obj, name), label))
+    try:
+        yield
+    finally:
+        for obj, name, fn in saved:
+            setattr(obj, name, fn)
+
+
+def phase_profile(cfg, host, device, trace_dir):
+    """One warm UNet training step: the synchronising calls it makes
+    (sync debug mode), then a torch.profiler trace of another
+    (``tdwss_torch.utils.profiling.trace``): the top device operations by
+    total time, the device's idle share over the traced window, and the
+    device time by category.  Returns (syncs, summary)."""
+    import torch
+    from torch.autograd import DeviceType
+
+    from tdwss_torch.engine.steps import make_optimizer, train_step
+    from tdwss_torch.models.meta_arch import build_model
+    from tdwss_torch.utils import profiling
+
+    batch = host.to(device)
+    model = build_model(cfg, seed=0, device=device)
+    opt, sched = make_optimizer(cfg, model, STEPS_PER_EPOCH)
+
+    def step():
+        return train_step(cfg, model, opt, sched, batch)
+
+    for _ in range(2):
+        step()
+    syncs = list_syncs(step)
+    log(f"profile: synchronising calls in one warm UNet train_step "
+        f"(set_sync_debug_mode('warn')): {len(syncs)} sites, "
+        f"{sum(syncs.values())} calls: {json.dumps(syncs)}")
+    if syncs:
+        raise AssertionError("train_step synchronises with the host")
+    # the same step untraced: device time between CUDA events, and the
+    # host's time until train_step returns (it does not wait)
+    torch.cuda.synchronize()
+    ev = (torch.cuda.Event(enable_timing=True),
+          torch.cuda.Event(enable_timing=True))
+    t = time.perf_counter()
+    ev[0].record()
+    step()
+    issue_s = time.perf_counter() - t
+    ev[1].record()
+    ev[1].synchronize()
+    step_ms = ev[0].elapsed_time(ev[1])
+    log(f"profile: one warm UNet step untraced: {step_ms:.3f} ms between "
+        f"CUDA events, train_step returned after {issue_s * 1e3:.3f} ms")
+    torch.cuda.synchronize()
+    with profile_scopes(), profiling.trace(trace_dir,
+                                           "trace.json.gz") as prof:
+        step()
+        torch.cuda.synchronize()
+    events = prof.events()
+    # device activity: kernels, copies and sets (the record_function
+    # ranges mirrored on the device timeline are not activity)
+    device_ev = [e for e in events if e.device_type == DeviceType.CUDA
+                 and not e.is_user_annotation
+                 and not e.name.startswith("smoke:")]
+    if not device_ev:
+        raise AssertionError("the profiler recorded no device activity")
+    lo = min(e.time_range.start for e in events)
+    hi = max(e.time_range.end for e in events)
+    spans = sorted((e.time_range.start, e.time_range.end) for e in device_ev)
+    busy, cur_s, cur_e = 0.0, None, None
+    for a, b in spans:
+        if cur_e is None or a > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = a, b
+        else:
+            cur_e = max(cur_e, b)
+    busy += cur_e - cur_s
+    window = hi - lo
+    by_name = {}
+    for e in device_ev:
+        ms, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + (e.time_range.end - e.time_range.start) / 1e3,
+                           n + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
+    cats, attributed = {}, 0.0
+    for e in events:
+        if e.device_type != DeviceType.CPU:
+            continue
+        for k in e.kernels:
+            c = _category(e, k.name)
+            cats[c] = cats.get(c, 0.0) + k.duration / 1e3
+            attributed += k.duration / 1e3
+    total_dev = sum(ms for ms, _ in by_name.values())
+    cats["not attributed to a host op"] = total_dev - attributed
+    summary = {"window_ms": window / 1e3, "device_busy_ms": busy / 1e3,
+               "idle_share": 1.0 - busy / window,
+               "untraced_step_ms": step_ms,
+               # an estimate across two steps: the traced step's busy
+               # time over the untraced step's time between events
+               "idle_share_untraced_est": 1.0 - busy / 1e3 / step_ms,
+               "device_activities": len(device_ev),
+               "device_ms_summed": total_dev,
+               "by_category_ms": dict(sorted(cats.items(),
+                                             key=lambda kv: -kv[1])),
+               "top_ops": [[n[:90], round(ms, 4), c] for n, (ms, c) in top]}
+    log(f"profile: one warm UNet step traced ({len(device_ev)} device "
+        f"activities: kernels, copies, sets): window {window / 1e3:.3f} ms, "
+        f"device busy {busy / 1e3:.3f} ms, idle share "
+        f"{1.0 - busy / window:.4f} of the traced window (the profiler "
+        f"slows the host); estimated {1.0 - busy / 1e3 / step_ms:.4f} of "
+        f"the untraced step's {step_ms:.3f} ms (the traced step's busy "
+        f"time over the other step's time)")
+    log("profile: device ms by category: "
+        + json.dumps(summary["by_category_ms"]))
+    log("profile: top device operations by total ms [name, ms, count]: "
+        + json.dumps(summary["top_ops"]))
+    del model, opt, sched, batch
+    return syncs, summary
 
 
 def phase_unpool_times(plans, planes, device, gen):
@@ -1626,7 +1879,273 @@ def phase_brick(batch, device, gen):
     return rows[1], launches
 
 
+def _state_equal(a, b):
+    """Two Trainer.state_dict()s bit for bit equal (model, optimiser
+    state, schedule, step)."""
+    import torch
+
+    if a["step"] != b["step"] or a["scheduler"] != b["scheduler"]:
+        return False
+    if a["model"].keys() != b["model"].keys():
+        return False
+    if not all(torch.equal(v, b["model"][k]) for k, v in a["model"].items()):
+        return False
+    sa, sb = a["optimizer"]["state"], b["optimizer"]["state"]
+    return sa.keys() == sb.keys() and all(
+        torch.equal(v, sb[i][k]) if isinstance(v, torch.Tensor) else v ==
+        sb[i][k] for i in sa for k, v in sa[i].items())
+
+
+def check_run_sums(batch, width, device):
+    """``devoxelize_seg``'s backward (the run sums) on the batch's point
+    order at ``width`` channels: twice bit for bit, and against an f64
+    sum of the same points (|d| <= 1e-5 max|f64|)."""
+    import torch
+
+    from tdwss_torch.ops.voxelize import run_sums
+
+    perm, p2v = batch.point_perm, batch.point2voxel
+    counts = batch.plans.levels[0].grid.counts
+    gen = torch.Generator(device=device).manual_seed(3)
+    dpts = torch.randn((perm.shape[0], width), generator=gen, device=device)
+    a, b = run_sums(dpts, perm, counts), run_sums(dpts, perm, counts)
+    v = counts.shape[0]
+    ok = (p2v >= 0) & (p2v < v)
+    ref = torch.zeros((v, width), dtype=torch.float64, device=device)
+    ref.index_add_(0, p2v[ok].long(), dpts[ok].double())
+    err = (a.double() - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    same = torch.equal(a, b)
+    log(f"devoxelize_seg backward (run sums) at ({perm.shape[0]}, {width}) "
+        f"-> ({v}, {width}): two runs bit-identical: {same}; max|d| vs an "
+        f"f64 sum {err:.3g} (limit 1e-5 * {scale:.3g})")
+    if not same or err > 1e-5 * scale:
+        raise AssertionError("devoxelize_seg's backward is not reproducible "
+                             "or disagrees with the f64 sum")
+
+
+def phase_loop(val_scenes, device):
+    """The weak-supervision loop through the port's entry points, in a
+    temporary working directory, on LOOP_SCENES synthetic train scenes of
+    POINTS_PER_SCENE points and the bench's val scenes:
+
+    1. ``Trainer`` over ``3DUNetWithText_pseudolabel_finer.yaml`` (cut to
+       the bench batch): ``fit(epochs=1)``, 2 steps and the epoch-1
+       validation; a second ``Trainer`` resumes at epoch 2 with the
+       first's state bit for bit;
+    2. ``threshold_sweep`` and ``generate_pseudo_labels`` at 0.71;
+    3. ``Trainer`` over ``3DUNetWithText_scannet_fcnet_with_pseudo.yaml``
+       (FullySupervised) on those labels: ``fit(epochs=1)``; then epoch 2
+       timed (wall seconds per step through the prefetching loader,
+       device seconds per step by CUDA events) against the host's
+       seconds per batch planned serially;
+    4. one FullySupervised step through ``phase_train`` (launches against
+       the plans' routing, tensor-core bodies, layer by layer against the
+       plain versions, loss, bf16 gradients bit for bit) and
+       ``devoxelize_seg``'s backward bit for bit;
+    5. ``python -m tdwss_torch.cli.train --config configs/smoke_cpu.yaml
+       --epochs 1`` as a subprocess on the card.
+
+    Returns (launches of 1-3, launches of 4)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from tdwss_torch.config import load_config
+    from tdwss_torch.data.loader import train_batches
+    from tdwss_torch.data.synthetic import make_dataset
+    from tdwss_torch.engine import train as train_mod
+    from tdwss_torch.engine.pseudo import (generate_pseudo_labels,
+                                           threshold_sweep)
+    from tdwss_torch.ops import windowed as W
+    from tdwss_torch.ops.host_plan import reset_sticky_plans
+
+    t = time.perf_counter()
+    scenes = make_dataset(LOOP_SCENES, num_points=POINTS_PER_SCENE, seed=11,
+                          with_text=False)
+    log(f"loop: {LOOP_SCENES} train scenes x {POINTS_PER_SCENE} points in "
+        f"{time.perf_counter() - t:.2f} s")
+    cwd = os.getcwd()
+    work = tempfile.mkdtemp(prefix="chip_smoke_loop_")
+    os.chdir(work)
+    try:
+        gen_cfg = cut_to_bench_batch(load_config(os.path.join(
+            HERE, "configs", "3DUNetWithText_pseudolabel_finer.yaml")))
+        reset_sticky_plans()
+        torch.cuda.synchronize()
+        W.reset_launches()
+        t = time.perf_counter()
+        trainer = train_mod.Trainer(gen_cfg, scenes, val_scenes,
+                                    device=device, verbose=False)
+        log(f"loop: Trainer ({gen_cfg.training_name}, MultiLabel over "
+            f"{gen_cfg.pointcloud_model.name}) built, plan shapes warmed "
+            f"over epochs {trainer.warmed_epochs} "
+            f"({gen_cfg.engine.collate_workers} collate workers): "
+            f"{time.perf_counter() - t:.2f} s")
+        t = time.perf_counter()
+        hist = trainer.fit(epochs=1)
+        log(f"loop: fit(epochs=1): {trainer.spe} steps and the epoch-1 "
+            f"validation in {time.perf_counter() - t:.2f} s; mean loss "
+            f"{hist[0]:.6f}")
+        if len(hist) != 1 or not math.isfinite(hist[0]):
+            raise AssertionError(f"loop: bad loss history {hist}")
+        warm = copy.deepcopy(gen_cfg)
+        warm.engine.prewarm_shapes = False   # this process is warm already
+        resumed = train_mod.Trainer(warm, scenes, val_scenes, device=device,
+                                    verbose=False)
+        same = _state_equal(trainer.state_dict(), resumed.state_dict())
+        log(f"loop: a second Trainer starts at epoch {resumed.start_epoch} "
+            f"with the first's model, optimiser, schedule and step "
+            f"bit-identical: {same}")
+        if resumed.start_epoch != 2 or not same:
+            raise AssertionError("loop: the resumed Trainer differs")
+        del resumed
+        t = time.perf_counter()
+        sweep = threshold_sweep(gen_cfg, trainer.model, scenes,
+                                verbose=False, device=device,
+                                plot_path=os.path.join(work, "sweep.jpg"))
+        log(f"loop: threshold_sweep over {sweep['total']} valid points in "
+            f"{time.perf_counter() - t:.2f} s: " + ", ".join(
+                f"{th:.3f}: {g} generated, {c} correct" for th, g, c in zip(
+                    sweep["thresholds"], sweep["generated"],
+                    sweep["correct"])))
+        t = time.perf_counter()
+        generated, correct, total = generate_pseudo_labels(
+            gen_cfg, trainer.model, scenes, threshold=0.71, verbose=False,
+            device=device)
+        label_dir = os.path.join(work, gen_cfg.path,
+                                 f"{gen_cfg.training_name}_thresh0.71")
+        log(f"loop: generate_pseudo_labels at 0.71 in "
+            f"{time.perf_counter() - t:.2f} s: {generated} of {total} points "
+            f"labelled, {correct} of them correct")
+        del trainer
+
+        fs_cfg = cut_to_bench_batch(load_config(os.path.join(
+            HERE, "configs", "3DUNetWithText_scannet_fcnet_with_pseudo.yaml")))
+        fs_cfg.pseudo_label_path = label_dir
+        for scene in scenes:
+            scene.pseudo_labels = np.load(os.path.join(
+                label_dir, scene.name + fs_cfg.pseudo_label_suffix))
+        reset_sticky_plans()
+        t = time.perf_counter()
+        fs = train_mod.Trainer(fs_cfg, scenes, val_scenes, device=device,
+                               verbose=False)
+        log(f"loop: Trainer ({fs_cfg.training_name}, FullySupervised) "
+            f"built, plan shapes warmed over epochs {fs.warmed_epochs}: "
+            f"{time.perf_counter() - t:.2f} s")
+        t = time.perf_counter()
+        hist = fs.fit(epochs=1)
+        log(f"loop: FullySupervised fit(epochs=1): {fs.spe} steps and "
+            f"{fs_cfg.pointcloud_data.val_reps} validation reps in "
+            f"{time.perf_counter() - t:.2f} s; mean loss {hist[0]:.6f}")
+        if not math.isfinite(hist[0]):
+            raise AssertionError(f"loop: bad FullySupervised loss {hist}")
+
+        # epoch 2 through the prefetching loader, each step's device time
+        # between CUDA events around it
+        events = []
+        real_step = train_mod.train_step
+
+        def timed_step(*a, **kw):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = real_step(*a, **kw)
+            ev[1].record()
+            events.append(ev)
+            return out
+
+        torch.cuda.synchronize()
+        train_mod.train_step = timed_step
+        try:
+            t = time.perf_counter()
+            fs.run_epoch(2)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        finally:
+            train_mod.train_step = real_step
+        dev_s = [a.elapsed_time(b) / 1e3 for a, b in events]
+        b = next(iter(train_batches(scenes, fs_cfg, 3, prefetch=False)))
+        b = b.to(device)
+        syncs = list_syncs(lambda: train_mod.train_step(
+            fs_cfg, fs.model, fs.optimizer, fs.scheduler, b))
+        log(f"loop: synchronising calls in one warm FullySupervised "
+            f"train_step: {len(syncs)} sites: {json.dumps(syncs)}")
+        if syncs:
+            raise AssertionError("train_step synchronises with the host")
+        del b
+        # epoch 2's batches planned again on the host alone: in turn on
+        # one thread, then on the collate threads at once (the native
+        # planner is a ctypes call, which releases the GIL)
+        serial_cfg = copy.deepcopy(fs_cfg)
+        serial_cfg.engine.collate_workers = 1
+        per_batch = {}
+        for label, c in (("serially", serial_cfg), ("threaded", fs_cfg)):
+            t = time.perf_counter()
+            n = sum(1 for _ in train_batches(scenes, c, 2, prefetch=False))
+            per_batch[label] = (time.perf_counter() - t) / n
+        at_once = min(n, fs_cfg.engine.collate_workers)
+        log(f"loop: FullySupervised epoch 2: {len(dev_s)} steps in "
+            f"{wall:.3f} s wall through the prefetching loader "
+            f"({fs_cfg.engine.collate_workers} collate workers, copies on "
+            f"a copy stream): {wall / len(dev_s):.3f} s per step; device "
+            f"seconds per step (CUDA events) "
+            f"{', '.join(f'{x:.3f}' for x in dev_s)}; host seconds per "
+            f"batch planned serially (1 worker, no prefetch) "
+            f"{per_batch['serially']:.3f}, on {at_once} collate threads "
+            f"at once {per_batch['threaded']:.3f} (overlap "
+            f"{per_batch['serially'] / per_batch['threaded']:.2f}x of "
+            f"{at_once} possible)")
+        del fs
+        launches = dict(W.launches)
+        check_bodies("loop")
+        log(f"loop: launches over the two Trainers, the sweep and the "
+            f"generation: {launches}")
+        if not (launches[W.K1] and launches[W.K2]):
+            raise AssertionError("loop: K1 or K2 was not launched")
+
+        planned, host, host_s = plan_train_batch(fs_cfg, scenes[:NUM_SCENES],
+                                                 "FullySupervised")
+        fs_launches = phase_train("FullySupervised", fs_cfg, planned, host,
+                                  host_s, device, 1, full_checks=False,
+                                  repro=True)
+        from tdwss_torch.models.sparse_encoders import output_width
+
+        check_run_sums(host.to(device), output_width(
+            fs_cfg.pointcloud_model), device)
+        del planned, host
+
+        t = time.perf_counter()
+        env = dict(os.environ, PYTHONPATH=HERE)
+        res = subprocess.run(
+            [sys.executable, "-m", "tdwss_torch.cli.train", "--config",
+             os.path.join(HERE, "configs", "smoke_cpu.yaml"), "--epochs",
+             "1"], cwd=work, env=env, capture_output=True, text=True,
+            timeout=300)
+        log(f"loop: python -m tdwss_torch.cli.train --config "
+            f"configs/smoke_cpu.yaml --epochs 1 (on the card): exit "
+            f"{res.returncode} in {time.perf_counter() - t:.2f} s; "
+            + " | ".join(l for l in res.stdout.splitlines()
+                         if "Train loss" in l or "mean IOU" in l))
+        if res.returncode != 0 or "mean IOU" not in res.stdout:
+            raise AssertionError("loop: the train CLI failed: "
+                                 + res.stderr[-3000:])
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(work, ignore_errors=True)
+    return launches, fs_launches
+
+
 def main() -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--trace-dir",
+                        default=os.path.join(HERE, "exp", "chip_smoke"),
+                        help="where the profile phase writes trace.json.gz")
+    args = parser.parse_args()
     if not os.path.isdir(os.path.join(HERE, "tdwss_torch")):
         print("chip_smoke.py: the tdwss_torch package is not beside this "
               "file", file=sys.stderr)
@@ -1707,7 +2226,6 @@ def main() -> int:
         paths = {"validate": val_launches,
                  "UNet": phase_train("UNet", cfg, *unet_batch, device,
                                      TRAIN_STEPS, full_checks=True)}
-        del unet_batch
         paths["Narrow"] = phase_train("Narrow", narrow_cfg, *narrow_batch,
                                       device, TRAIN_STEPS, full_checks=False)
         phase_unpool_times(narrow_batch[1].plans, n_planes, device, gen)
@@ -1716,6 +2234,8 @@ def main() -> int:
         paths["FCNet"] = phase_train("FCNet", fcnet_cfg, *fcnet_batch,
                                      device, 1, full_checks=False)
         del fcnet_batch
+    phase_profile(cfg, unet_batch[1], device, args.trace_dir)
+    del unet_batch
     n = phase_fwd_sweep(shapes, device, gen)
     log(f"forward sweep: {n} shapes held against the plain versions")
     del shapes
@@ -1734,6 +2254,7 @@ def main() -> int:
     del dw_shapes
     k7_row, paths["brick"] = phase_brick(batch, device, gen)
     rows.append(k7_row)
+    paths["loop"], paths["FullySupervised"] = phase_loop(scenes, device)
     # The kernels line lists every ported kernel with its launches summed
     # over the paths (0 for K4 and K5: no plan of any path is flat-form).
     for row in rows:

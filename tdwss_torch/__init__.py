@@ -10,9 +10,13 @@ plain PyTorch version beside it, which CPU tensors take.
 
 Ported so far: multi-view-vote validation
 (:func:`tdwss_torch.engine.evaluate.validate`) and the training step
-(:func:`tdwss_torch.engine.steps.train_step`) of ``MultiLabel`` over
-``SparseConvUNet`` and the FCN-family encoders
-(:mod:`tdwss_torch.models.sparse_encoders`).
+(:func:`tdwss_torch.engine.steps.train_step`) of ``MultiLabel`` and
+``FullySupervised`` over ``SparseConvUNet`` and the FCN-family encoders
+(:mod:`tdwss_torch.models.sparse_encoders`), and the weak-supervision
+loop through its entry points: :class:`tdwss_torch.engine.train.Trainer`
+over the prefetching train loader, the pseudo-label stage
+(:mod:`tdwss_torch.engine.pseudo`) and the command-line entry points
+(``python -m tdwss_torch.cli.<name>``).
 """
 
 __version__ = "0.1.0"

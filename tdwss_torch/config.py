@@ -1,14 +1,16 @@
 """Typed experiment configuration (twin of :mod:`tdwss.config`).
 
-The dataclasses the ported slice reads, with the reference's defaults and
-only the fields the slice reads; :func:`load_config` skips the others.
-``yaml`` is imported only inside :func:`load_config`, so building a
-config in code needs no YAML package.
+The dataclasses the port reads, with the reference's names and defaults
+and only the fields the port reads; :func:`load_config` skips the others.
+:func:`load_config` reads the YAML files with :func:`parse_yaml_subset`,
+a reader of the part of YAML the repository's config files use, so the
+port needs no PyYAML (the card machine has none).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import re
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
@@ -19,6 +21,7 @@ class PointcloudDataConfig:
     val_reps: int = 1                # multi-view voting repetitions
     batch_size: int = 16
     elastic_deformation: bool = False
+    with_boxes: bool = False         # GSS proposals (loaded, not collated)
 
 
 @dataclass
@@ -41,6 +44,11 @@ class LossConfig:
 
 
 @dataclass
+class MeshConfig:
+    data: int = 1                    # devices on the data-parallel axis
+
+
+@dataclass
 class EngineConfig:
     """Static capacities and execution knobs (names as in the reference)."""
 
@@ -52,6 +60,13 @@ class EngineConfig:
     compute_dtype: str = "float32"   # "bfloat16" for the bench config
     host_plans: bool = True          # rulebooks are built on the host
     slim_device_plans: bool = True   # narrow rb_local dtypes, drop dead leaves
+    collate_workers: int = 4         # host collate/plan threads
+    prewarm_shapes: bool = True      # converge the sticky plan shapes first
+    prewarm_epochs: List[int] = field(default_factory=lambda: [1, 2])
+    slim_train_batch: bool = True    # drop train-dead point leaves
+    # Read by the reference's plan cache only; the port has no plan cache
+    # (see tdwss_torch.data.loader).
+    plan_cache_batches: int = 64
 
 
 @dataclass
@@ -62,14 +77,26 @@ class Config:
         default_factory=PointcloudDataConfig)
     label: str = "scene_level"       # scene_level | pseudo | subcloud
     has_text: bool = False
+    in_radius: float = 2.0           # subcloud sampling radius (metres)
+    pseudo_label_path: str = ""
+    pseudo_label_suffix: str = "_pseudo_label.npy"
+    data_root: str = "dataset/ScanNet"
+    box_path: str = ""               # GSS proposals <scene>_prop.npy
     pointcloud_model: PointcloudModelConfig = field(
         default_factory=PointcloudModelConfig)
     loss: LossConfig = field(default_factory=LossConfig)
+    pretrain: str = ""               # checkpoint directory seeding a fresh run
+    epochs: int = 512
     lr: float = 1e-3
     lr_decay_epochs: int = 100       # StepLR(step_size=100, gamma=0.1)
     lr_decay_gamma: float = 0.1
     seed: int = 0
+    # pseudo-label generation (statistics / pseudo_label_generation)
+    threshold: float = 0.71
+    path: str = "dataset/ScanNet/pseudo_label"
+    suffix: str = "_pseudo_label.npy"
     engine: EngineConfig = field(default_factory=EngineConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
 
 
 _DATACLASS_FIELDS = {
@@ -77,6 +104,7 @@ _DATACLASS_FIELDS = {
     (Config, "pointcloud_model"): PointcloudModelConfig,
     (Config, "loss"): LossConfig,
     (Config, "engine"): EngineConfig,
+    (Config, "mesh"): MeshConfig,
 }
 
 
@@ -97,12 +125,118 @@ def _build(dc_type, raw: Dict[str, Any]):
     return dc_type(**kwargs)
 
 
+def _scalar(text: str) -> Any:
+    """A plain or quoted YAML scalar: null, bool, int, float or string."""
+    t = text.strip()
+    if len(t) >= 2 and t[0] == t[-1] == "'":
+        return t[1:-1].replace("''", "'")
+    if len(t) >= 2 and t[0] == t[-1] == '"':
+        if "\\" in t:
+            raise ValueError(f"unsupported YAML escape: {t!r}")
+        return t[1:-1]
+    low = t.lower()
+    if low in ("", "~", "null"):
+        return None
+    if low in ("true", "false"):
+        return low == "true"
+    # YAML 1.1's resolvers, as PyYAML reads them: "1e-3" is a string
+    if re.fullmatch(r"[-+]?(0|[1-9][0-9_]*)", t):
+        return int(t.replace("_", ""))
+    if re.fullmatch(r"[-+]?([0-9][0-9_]*)?\.[0-9_]*([eE][-+][0-9]+)?", t) \
+            and any(c.isdigit() for c in t):
+        return float(t.replace("_", ""))
+    return t
+
+
+def _flow(text: str, i: int = 0):
+    """(value, next index) of the flow collection or scalar at ``i``."""
+    while text[i] == " ":
+        i += 1
+    if text[i] in "[{":
+        close = "]" if text[i] == "[" else "}"
+        items, i = [], i + 1
+        while True:
+            while text[i] == " ":
+                i += 1
+            if text[i] == close:
+                i += 1
+                break
+            if close == "}":
+                colon = text.index(":", i)
+                key = _scalar(text[i:colon])
+                value, i = _flow(text, colon + 1)
+                items.append((key, value))
+            else:
+                value, i = _flow(text, i)
+                items.append(value)
+            while text[i] == " ":
+                i += 1
+            if text[i] == ",":
+                i += 1
+        return (dict(items) if close == "}" else items), i
+    j = i
+    while j < len(text) and text[j] not in ",]}":
+        j += 1
+    return _scalar(text[i:j]), j
+
+
+def _strip_comment(line: str) -> str:
+    """``line`` without its comment: a ``#`` at the start or after a
+    blank, outside a quoted scalar (one whose quote opens a value)."""
+    quote = None
+    for i, c in enumerate(line):
+        if quote:
+            if c == quote:
+                quote = None
+        elif c in "'\"" and line[:i].rstrip()[-1:] in ("", ":", ",", "[",
+                                                       "{", "-"):
+            quote = c
+        elif c == "#" and (i == 0 or line[i - 1] in " \t"):
+            return line[:i].rstrip()
+    return line.rstrip()
+
+
+def parse_yaml_subset(text: str) -> Dict[str, Any]:
+    """The YAML the config files use: nested block mappings by
+    indentation, ``key: value`` with plain, quoted or flow (``{...}``,
+    ``[...]``) values, and ``#`` comments.  Anything else raises."""
+    root: Dict[str, Any] = {}
+    # (indent of the key line, its mapping; or, for a key whose value is
+    # still empty, (parent mapping, key), made a mapping by a child line)
+    stack: List[Any] = [(-1, root)]
+    for lineno, raw in enumerate(text.splitlines(), 1):
+        line = _strip_comment(raw)
+        if not line.strip():
+            continue
+        indent = len(line) - len(line.lstrip(" "))
+        body = line.strip()
+        if ":" not in body or body.startswith(("-", "&", "*", "|", ">")):
+            raise ValueError(f"line {lineno}: unsupported YAML: {raw!r}")
+        key, _, rest = body.partition(":")
+        while indent <= stack[-1][0]:
+            stack.pop()
+        parent = stack[-1][1]
+        if isinstance(parent, tuple):
+            owner, name = parent
+            owner[name] = parent = {}
+            stack[-1] = (stack[-1][0], parent)
+        rest = rest.strip()
+        if not rest:
+            parent[key.strip()] = None
+            stack.append((indent, (parent, key.strip())))
+            continue
+        value, end = _flow(rest)
+        if rest[end:].strip():
+            raise ValueError(f"line {lineno}: unsupported YAML: {raw!r}")
+        parent[key.strip()] = value
+    return root
+
+
 def load_config(path: str, **overrides: Any) -> Config:
     """Load a YAML config in the reference's flat or sectioned layout."""
-    import yaml
-
     with open(path, "r") as f:
-        raw = yaml.safe_load(f) or {}
+        text = f.read()
+    raw = parse_yaml_subset(text)
     flat: Dict[str, Any] = {}
     for key, value in raw.items():
         if isinstance(value, dict) and key.upper() in (

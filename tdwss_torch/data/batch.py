@@ -10,10 +10,12 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any, Optional
+from typing import Any, Iterator, Optional
 
 import numpy as np
 import torch
+
+from tdwss_torch.ops.plan import _to_tensor
 
 
 @dataclass
@@ -46,15 +48,31 @@ class PointBatch:
     def replace(self, **kw) -> "PointBatch":
         return dataclasses.replace(self, **kw)
 
-    def to(self, device) -> "PointBatch":
+    def to(self, device, non_blocking: bool = False) -> "PointBatch":
+        """Every array and tensor (and the plans) on ``device``; with
+        ``non_blocking``, host arrays go through pinned memory and the
+        copies to a card are asynchronous on the current stream (see
+        :func:`tdwss_torch.ops.plan._to_tensor`)."""
         kw = {}
         for f in dataclasses.fields(self):
             v = getattr(self, f.name)
-            if isinstance(v, np.ndarray):
-                kw[f.name] = torch.from_numpy(
-                    np.ascontiguousarray(v)).to(device)
-            elif isinstance(v, torch.Tensor):
-                kw[f.name] = v.to(device)
+            if isinstance(v, (np.ndarray, torch.Tensor)):
+                kw[f.name] = _to_tensor(v, device, non_blocking)
             elif f.name == "plans" and v is not None:
-                kw[f.name] = v.to(device)
+                kw[f.name] = v.to(device, non_blocking)
         return dataclasses.replace(self, **kw)
+
+    def tensors(self) -> Iterator[torch.Tensor]:
+        """Every tensor of the batch and its plans."""
+        yield from _tensors(self)
+
+
+def _tensors(obj) -> Iterator[torch.Tensor]:
+    if isinstance(obj, torch.Tensor):
+        yield obj
+    elif dataclasses.is_dataclass(obj):
+        for f in dataclasses.fields(obj):
+            yield from _tensors(getattr(obj, f.name))
+    elif isinstance(obj, (tuple, list)):
+        for v in obj:
+            yield from _tensors(v)

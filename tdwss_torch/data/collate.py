@@ -2,13 +2,16 @@
 ``train_collate`` (trainMerge) and ``val_collate`` (valMerge).
 
 Every batch is padded to the static ``max_points`` capacity and carries
-masks; if the scenes exceed it, a uniform random subset is kept.  Text
-tokens and proposal boxes are not collated (the text branch is not
-ported).
+masks; if the scenes exceed it, a uniform random subset is kept, and
+:class:`CollateStats` counts the points seen and dropped.  Text tokens
+and proposal boxes are not collated (the text branch is not ported, and
+no ported model reads the boxes).
 """
 
 from __future__ import annotations
 
+import threading
+from dataclasses import dataclass, field
 from typing import Optional, Sequence
 
 import numpy as np
@@ -21,9 +24,32 @@ from tdwss_torch.data.batch import PointBatch
 from tdwss_torch.data.synthetic import Scene
 
 
+@dataclass
+class CollateStats:
+    """Points collated and points dropped over a loader epoch.
+
+    Collates run on concurrent worker threads
+    (:mod:`tdwss_torch.data.loader`), so :meth:`add` takes a lock: a bare
+    ``+=`` could lose a batch's count.
+    """
+
+    total_points: int = 0
+    dropped_points: int = 0
+    _lock: threading.Lock = field(default_factory=threading.Lock,
+                                  repr=False, compare=False)
+
+    def add(self, total: int, dropped: int = 0) -> None:
+        with self._lock:
+            self.total_points += total
+            self.dropped_points += dropped
+
+
 def _pad_points(arrays: dict, n_actual: int, capacity: int,
-                rng: np.random.Generator):
+                rng: np.random.Generator,
+                stats: Optional[CollateStats] = None):
     """Pad (or uniformly subsample) the concatenated point arrays."""
+    if stats is not None:
+        stats.add(n_actual, max(n_actual - capacity, 0))
     if n_actual > capacity:
         keep = rng.permutation(n_actual)[:capacity]
         keep.sort()
@@ -41,16 +67,15 @@ def _pad_points(arrays: dict, n_actual: int, capacity: int,
 
 
 def train_collate(scenes: Sequence[Scene], cfg: Config,
-                  rng: np.random.Generator) -> PointBatch:
-    """trainMerge parity over a list of scenes: one augmented view per
-    scene, colour jitter, scene tags from the kept points' labels.  The
-    draws from ``rng`` are the reference's, in its order."""
+                  rng: np.random.Generator,
+                  stats: Optional[CollateStats] = None) -> PointBatch:
+    """trainMerge parity over a list of scenes (subclouds, under label
+    ``subcloud``, are scenes too): one augmented view per scene, colour
+    jitter, scene tags from the kept points' labels, and under label
+    ``pseudo`` the scenes' pseudo labels as the point labels.  The draws
+    from ``rng`` are the reference's, in its order."""
     if cfg.has_text:
         raise NotImplementedError("the text branch is not ported yet")
-    if cfg.label == "subcloud":
-        raise NotImplementedError(
-            "label 'subcloud' (the reference's expand_subclouds, "
-            "tdwss/data/dataset.py:82) is not ported yet")
     pcd = cfg.pointcloud_data
     full_scale = cfg.pointcloud_model.full_scale
     use_pseudo = cfg.label == "pseudo"
@@ -82,7 +107,7 @@ def train_collate(scenes: Sequence[Scene], cfg: Config,
         "point_label": np.concatenate(label_l),
     }
     arrays, valid = _pad_points(arrays, coords3.shape[0],
-                                cfg.engine.max_points, rng)
+                                cfg.engine.max_points, rng, stats)
     return PointBatch(
         coords=arrays["coords"],
         feats=arrays["feats"],
@@ -98,6 +123,7 @@ def val_collate(scenes: Sequence[Scene], cfg: Config,
                 rng: np.random.Generator,
                 scene_offsets: Sequence[int],
                 scene_indices: Sequence[int],
+                stats: Optional[CollateStats] = None,
                 num_scenes: Optional[int] = None) -> PointBatch:
     """valMerge parity: one random view per scene + global point_ids.
 
@@ -131,7 +157,7 @@ def val_collate(scenes: Sequence[Scene], cfg: Config,
         "point_ids": np.concatenate(pid_l),
     }
     arrays, valid = _pad_points(arrays, coords3.shape[0],
-                                cfg.engine.max_points, rng)
+                                cfg.engine.max_points, rng, stats)
     arrays["point_ids"] = np.where(valid, arrays["point_ids"], -1)
 
     b = num_scenes or len(scenes)

@@ -17,3 +17,10 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
             "device 'cuda' requested but torch.cuda.is_available() is False; "
             "pass device='cpu' to run the plain versions on the CPU")
     return dev
+
+
+def check_model_device(model: torch.nn.Module, dev: torch.device) -> None:
+    """Raise unless ``model``'s parameters live on ``dev``'s device type."""
+    p = next(model.parameters())
+    if p.device.type != dev.type:
+        raise ValueError(f"model lives on {p.device}, not on {dev}")

@@ -15,7 +15,7 @@ import torch
 from tdwss_torch.config import Config
 from tdwss_torch.data.dataset import val_offsets
 from tdwss_torch.data.loader import val_batches
-from tdwss_torch.device import resolve_device
+from tdwss_torch.device import check_model_device, resolve_device
 from tdwss_torch.engine.steps import accumulate_votes, eval_step
 from tdwss_torch.utils import iou
 
@@ -32,10 +32,7 @@ def validate(cfg: Config, model, val_scenes, reps: Optional[int] = None,
     synchronise).
     """
     dev = resolve_device(device)
-    for p in model.parameters():
-        if p.device.type != dev.type:
-            raise ValueError(f"model lives on {p.device}, validate on {dev}")
-        break
+    check_model_device(model, dev)
     reps = reps or cfg.pointcloud_data.val_reps
     offsets, labels = val_offsets(val_scenes)
     store = torch.zeros((int(offsets[-1]), 20), dtype=torch.float32,

@@ -3,8 +3,9 @@
 
 The training iteration of the reference (train.py:55-81): forward with
 ``istrain=True`` (batch norm in train mode, its running statistics
-updated), the scene-level Classification loss, backward through the
-kernels, an Adam step and the StepLR schedule by epoch.
+updated), the scene-level Classification loss (plus the point-level
+cross-entropy on the pseudo labels in the pseudo-label round), backward
+through the kernels, an Adam step and the StepLR schedule by epoch.
 """
 
 from __future__ import annotations
@@ -46,10 +47,9 @@ def make_optimizer(cfg: Config, model: torch.nn.Module,
 def compute_loss(cfg: Config, model, batch: PointBatch
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(loss, aux scalars) of one forward in training mode."""
-    if cfg.label == "pseudo" or (cfg.has_text and cfg.loss.TextContrastive):
-        raise NotImplementedError("the point and text losses are not "
-                                  "ported yet")
-    out, _ = model(batch, istrain=True)
+    if cfg.has_text and cfg.loss.TextContrastive:
+        raise NotImplementedError("the text loss is not ported yet")
+    out, meta = model(batch, istrain=True)
     loss = torch.zeros((), dtype=torch.float32, device=out.device)
     aux = {}
     if cfg.loss.Classification:
@@ -57,6 +57,11 @@ def compute_loss(cfg: Config, model, batch: PointBatch
                                   mask=batch.scene_mask)
         loss = loss + cls_loss
         aux["cls_loss"] = cls_loss
+        if cfg.label == "pseudo":
+            point_loss = Classification(meta, batch.point_label,
+                                        mask=batch.valid)
+            loss = loss + point_loss
+            aux["point_loss"] = point_loss
     aux["loss"] = loss
     return loss, aux
 
@@ -66,7 +71,11 @@ def train_step(cfg: Config, model, optimizer, scheduler, batch: PointBatch
     """One optimisation step on the batch's device: forward (batch-norm
     running statistics updated), backward, Adam update, schedule step.
     Returns the loss and aux scalars as detached tensors, with no host
-    synchronisation."""
+    synchronisation: on a card the call returns once the step is issued,
+    not when it is done (``chip_smoke.py`` runs a warm step of the bench
+    UNet and of FullySupervised under ``torch.cuda.set_sync_debug_mode``
+    and fails on any synchronising call).  The host's issue of the step's
+    launches can still take as long as the card's work."""
     model.train()
     optimizer.zero_grad(set_to_none=True)
     loss, aux = compute_loss(cfg, model, batch)

@@ -4,6 +4,11 @@
 point-cloud encoder and a ``linear(embed -> 20)`` head.  Its eval path
 gives per-point logits; its training path (``istrain=True``) gives scene
 logits over the encoder's pooled scene features.
+
+``FullySupervised`` (reference models/MultiLabelContrastive.py:72-101):
+the same encoder and head, trained on per-point (pseudo) labels; its
+training path gives ``(scene logits, per-point logits)``, the scene
+logits being the per-scene mean of the point logits.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ from tdwss_torch.config import EngineConfig, PointcloudModelConfig
 from tdwss_torch.data.batch import PointBatch
 from tdwss_torch.device import resolve_device
 from tdwss_torch.models.sparse_encoders import build_sparse_encoder
+from tdwss_torch.ops.segment import segment_mean_by_batch
 from tdwss_torch.ops.windowed import KMAX
 
 
@@ -86,14 +92,38 @@ class MultiLabel(nn.Module):
         return (logits, None) if istrain else logits
 
 
-MODELS = {"MultiLabel": MultiLabel}
+class FullySupervised(MultiLabel):
+    """Pseudo-label retraining round: per-point logits through the
+    differentiable readback (``devoxelize_seg``), batch norm in train
+    mode with ``istrain``; parameters drawn as :class:`MultiLabel`'s."""
+
+    # The scene mean pools point logits by coords[:, 3] over the valid
+    # points, and the point loss reads the point leaves.
+    reads_point_coords = True
+    reads_point_leaves = True
+
+    def forward(self, batch: PointBatch, istrain: bool = False,
+                train: Optional[bool] = None):
+        """Per-point logits (N, 20) float32; with ``istrain``,
+        ``(scene logits (B, 20), point logits (N, 20))``."""
+        train = istrain if train is None else train
+        feats = self.pc_encoder(
+            batch.coords, batch.feats, batch.valid, istrain=False,
+            train=train, plans=batch.plans, vox_feats=batch.vox_feats,
+            point2voxel=batch.point2voxel, point_perm=batch.point_perm)
+        logits = self.linear(feats)
+        if not istrain:
+            return logits
+        scene = segment_mean_by_batch(logits, batch.coords[:, 3],
+                                      batch.num_scenes, batch.valid)
+        return scene, logits
+
+
+MODELS = {"MultiLabel": MultiLabel, "FullySupervised": FullySupervised}
 
 # Meta-architectures not ported yet, with what the reference registers
-# for their training steps (``tdwss/models/meta_arch.py:75``, ``:139``):
-# FullySupervised pools point logits by ``coords[:, 3]`` and trains on
-# the point labels.
-_UNPORTED_READS = {"MultiLabelContrastive": (False, False),
-                   "FullySupervised": (True, True)}
+# for their training steps (``tdwss/models/meta_arch.py:75``).
+_UNPORTED_READS = {"MultiLabelContrastive": (False, False)}
 
 
 def model_reads(name: str) -> Tuple[bool, bool]:
@@ -108,7 +138,7 @@ def model_reads(name: str) -> Tuple[bool, bool]:
 
 
 def build_model(cfg, seed: int = 0, device=None) -> nn.Module:
-    """Model named by ``cfg.model_name`` (only MultiLabel is ported)."""
+    """Model named by ``cfg.model_name`` (MultiLabel or FullySupervised)."""
     cls = MODELS.get(cfg.model_name)
     if cls is None:
         raise NotImplementedError(f"model {cfg.model_name!r} is not ported")

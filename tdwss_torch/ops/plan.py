@@ -26,17 +26,24 @@ import numpy as np
 import torch
 
 
-def _to_tensor(a, device):
+def _to_tensor(a, device, non_blocking: bool = False):
+    """A numpy array or tensor on ``device``.  With ``non_blocking`` a host
+    array is first copied into pinned memory, so that the copy to a card
+    is asynchronous on the current stream (pinned blocks are freed only
+    once that copy is done, by PyTorch's caching host allocator)."""
     if a is None:
         return None
-    if isinstance(a, torch.Tensor):
-        return a.to(device)
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    t = a if isinstance(a, torch.Tensor) else torch.from_numpy(
+        np.ascontiguousarray(a))
+    if non_blocking and torch.device(device).type == "cuda" \
+            and t.device.type == "cpu":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
 
 
-def _rb32(a, device):
+def _rb32(a, device, non_blocking: bool = False):
     """rb_local leaf -> int32 tensor on ``device`` (uint8/int16 upcast)."""
-    t = _to_tensor(a, device)
+    t = _to_tensor(a, device, non_blocking)
     return t if t.dtype == torch.int32 else t.to(torch.int32)
 
 
@@ -48,18 +55,19 @@ class _Leaves:
     def replace(self, **kw):
         return dataclasses.replace(self, **kw)
 
-    def to(self, device):
+    def to(self, device, non_blocking: bool = False):
         kw = {}
         for f in dataclasses.fields(self):
             v = getattr(self, f.name)
             if f.name in self._RB_FIELDS:
-                kw[f.name] = _rb32(v, device) if v is not None else None
+                kw[f.name] = (_rb32(v, device, non_blocking)
+                              if v is not None else None)
             elif isinstance(v, (np.ndarray, np.generic, torch.Tensor)):
                 kw[f.name] = _to_tensor(np.asarray(v)
                                         if isinstance(v, np.generic) else v,
-                                        device)
+                                        device, non_blocking)
             elif isinstance(v, _Leaves):
-                kw[f.name] = v.to(device)
+                kw[f.name] = v.to(device, non_blocking)
         return dataclasses.replace(self, **kw)
 
 
@@ -249,9 +257,10 @@ class LevelPlans:
     def replace(self, **kw):
         return dataclasses.replace(self, **kw)
 
-    def to(self, device) -> "LevelPlans":
+    def to(self, device, non_blocking: bool = False) -> "LevelPlans":
         return dataclasses.replace(
-            self, levels=tuple(lvl.to(device) for lvl in self.levels))
+            self, levels=tuple(lvl.to(device, non_blocking)
+                               for lvl in self.levels))
 
 
 def level_capacities(

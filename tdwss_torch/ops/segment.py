@@ -42,3 +42,26 @@ def segment_mean_weighted(feats: torch.Tensor, batch_idx: torch.Tensor,
     summed = mask @ feats.float()
     denom = mask.sum(dim=1)
     return (summed / torch.clamp(denom, min=1e-9)[:, None]).to(feats.dtype)
+
+
+def segment_sum_by_batch(feats: torch.Tensor, batch_idx: torch.Tensor,
+                         num_segments: int,
+                         valid: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """(N, C) rows summed into (num_segments, C) by scene index, in
+    feats' dtype."""
+    mask = _one_hot_mask(batch_idx, num_segments, valid)
+    return (mask @ feats.float()).to(feats.dtype)
+
+
+def segment_mean_by_batch(feats: torch.Tensor, batch_idx: torch.Tensor,
+                          num_segments: int,
+                          valid: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """Per-scene mean over the valid rows (postProcessing parity); a
+    scene with no valid row gives zeros.  -> (num_segments, C) in feats'
+    dtype."""
+    mask = _one_hot_mask(batch_idx, num_segments, valid)
+    summed = mask @ feats.float()
+    counts = mask.sum(dim=1)
+    return (summed / torch.clamp(counts, min=1.0)[:, None]).to(feats.dtype)

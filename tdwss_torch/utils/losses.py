@@ -1,9 +1,10 @@
 """Training losses (twin of :mod:`tdwss.utils.losses`).
 
-``Classification`` with (B, C) scene tags: the multi-label soft-margin
-loss over scene logits, masked over padded scenes.  The point-level
-cross-entropy branch (1-D labels, the pseudo-label round) and
-``TextContrastive`` are not ported yet.
+``Classification`` dispatches on the label rank: (B, C) scene tags take
+the multi-label soft-margin loss over scene logits, masked over padded
+scenes; (N,) point labels (the pseudo-label round) take the
+cross-entropy with ``-100`` ignored.  ``TextContrastive`` is not ported
+yet.
 """
 
 from __future__ import annotations
@@ -12,6 +13,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+IGNORE_LABEL = -100
 
 
 def multilabel_soft_margin(logits: torch.Tensor, labels: torch.Tensor,
@@ -30,13 +33,29 @@ def multilabel_soft_margin(logits: torch.Tensor, labels: torch.Tensor,
     return (per_scene * m).sum() / torch.clamp(m.sum(), min=1.0)
 
 
+def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                         valid: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """Mean cross-entropy of (N, C) logits against (N,) integer labels
+    over the rows whose label is not -100 (and, with ``valid``, that are
+    valid); 0 when no row counts."""
+    keep = labels != IGNORE_LABEL
+    if valid is not None:
+        keep = keep & valid
+    safe = torch.where(keep, labels, torch.zeros_like(labels)).long()
+    logp = F.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, 1, safe[:, None])[:, 0]
+    keep_f = keep.to(logits.dtype)
+    return (nll * keep_f).sum() / torch.clamp(keep_f.sum(), min=1.0)
+
+
 def Classification(logits: torch.Tensor, labels: torch.Tensor,
                    mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Dispatch on label rank (reference utils/loss.py:27-33): (B, C)
-    labels -> scene-level multi-label soft margin."""
+    labels -> scene-level multi-label soft margin; (N,) labels ->
+    point-level cross-entropy with -100 ignored."""
     if labels.dim() == 2:
         return multilabel_soft_margin(logits, labels, scene_mask=mask)
     if labels.dim() == 1:
-        raise NotImplementedError("the point-level cross-entropy (pseudo-"
-                                  "label round) is not ported yet")
+        return masked_cross_entropy(logits, labels, valid=mask)
     raise ValueError(f"unsupported label rank: {labels.dim()}")

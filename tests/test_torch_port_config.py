@@ -1,10 +1,12 @@
 """The port's config loader reads the repository's YAML experiment files
 as the reference does, for every field the port keeps; every config
-whose path is ported (MultiLabel, no text, scene-level labels) builds its
-model with the reference's plane schedule and head width, and every
-other config names what is missing when its model or its first batch is
-built; the encoder width table is the reference registry's; the configs
-that ``chip_smoke.py`` builds in code are the YAML files."""
+whose path is ported (MultiLabel or FullySupervised without text, on
+scene-level, pseudo or subcloud labels) builds its model with the
+reference's plane schedule and head width and its first train batch,
+and every other config (the text configs) names what is missing when
+its model or its first batch is built; the encoder width table is the
+reference registry's; the configs that ``chip_smoke.py`` builds in code
+are the YAML files."""
 
 import dataclasses
 import glob
@@ -16,8 +18,9 @@ import pytest
 from tdwss.config import load_config as ref_load_config
 from tdwss.models.sparse_encoders import embed_length_of as ref_embed_length
 from tdwss.registry import MODEL_REGISTRY
-from tdwss_torch.config import load_config
+from tdwss_torch.config import load_config, parse_yaml_subset
 from tdwss_torch.data.collate import train_collate
+from tdwss_torch.data.dataset import expand_subclouds
 from tdwss_torch.data.synthetic import make_dataset
 from tdwss_torch.models.meta_arch import build_model
 from tdwss_torch.models.sparse_encoders import EMBED_LENGTH, embed_length_of
@@ -54,9 +57,49 @@ def test_every_config_loads_as_in_the_reference(path):
     _same(load_config(path), ref_load_config(path))
 
 
+@pytest.mark.parametrize("path", CONFIGS, ids=_name)
+def test_yaml_subset_reader_reads_every_config_as_pyyaml(path):
+    """The port's only YAML reader (the card machine has no PyYAML)
+    reads every config file as PyYAML does."""
+    import yaml
+
+    with open(path) as f:
+        text = f.read()
+    assert parse_yaml_subset(text) == yaml.safe_load(text)
+
+
+def test_yaml_subset_reader_edge_cases():
+    import yaml
+
+    text = ("a:\nb:\n  c: [1, 2.5, x, -4]\n  d:\n"
+            "  e: {f: 'q r', g: [true, null, ~]}\nh: -3 # comment\n"
+            "# a comment line\ni: 1e-3\nj: 'a # b' # c\n"
+            "k: \"x #y\"\nl: it's # c\nm: 'it''s'\nn: a#b\n")
+    assert parse_yaml_subset(text) == yaml.safe_load(text)
+    with pytest.raises(ValueError, match="unsupported"):
+        parse_yaml_subset("a:\n  - 1\n")
+
+
 def _runs_on_the_port(cfg):
-    return (cfg.model_name == "MultiLabel" and not cfg.has_text
-            and cfg.label == "scene_level")
+    return (cfg.model_name in ("MultiLabel", "FullySupervised")
+            and not cfg.has_text)
+
+
+def _first_batch(cfg):
+    """The config's first train batch (collate only) on synthetic scenes:
+    subclouds under label ``subcloud``, seeded pseudo labels under
+    ``pseudo``."""
+    scenes = make_dataset(2, num_points=20000, seed=1, with_text=False)
+    if cfg.label == "subcloud":
+        scenes = expand_subclouds(scenes, cfg.in_radius)[:2]
+    if cfg.label == "pseudo":
+        rng = np.random.default_rng(0)
+        for s in scenes:
+            s.pseudo_labels = rng.integers(
+                0, 20, s.points.shape[0]).astype(np.int32)
+            s.pseudo_labels[rng.random(s.points.shape[0]) < 0.1] = -100
+    cfg.engine.max_points = 16384
+    return train_collate(scenes, cfg, np.random.default_rng(0))
 
 
 @pytest.mark.parametrize("path", CONFIGS, ids=_name)
@@ -76,15 +119,31 @@ def test_config_builds_its_model_or_names_what_is_missing(path):
                  "direct_uppool": planes[-1]}[cls.body_kind]
         assert model.linear.in_features == width
         assert model.pc_encoder.body_planes == tuple(planes)
+        batch = _first_batch(cfg)
+        assert batch.valid.sum() > 0
+        assert batch.num_scenes == 2
+        if cfg.label == "pseudo":
+            labels = batch.point_label[batch.valid]
+            assert (labels == -100).any() and (labels >= 0).any()
         return
     with pytest.raises(NotImplementedError) as err:
         model = build_model(cfg, device="cpu")
         scenes = make_dataset(1, num_points=500, seed=1,
                               with_text=cfg.has_text)
         train_collate(scenes, cfg, np.random.default_rng(0))
+    assert cfg.has_text
     unported = (cfg.model_name if cfg.model_name != "MultiLabel"
-                else "subcloud" if cfg.label == "subcloud" else "text")
+                else "text")
     assert unported in str(err.value)
+
+
+def test_only_the_text_configs_are_refused():
+    refused = [p for p in CONFIGS if not _runs_on_the_port(load_config(p))]
+    assert len(refused) == 6
+    assert all(load_config(p).has_text for p in refused)
+    labels = [load_config(p).label for p in CONFIGS
+              if _runs_on_the_port(load_config(p))]
+    assert labels.count("pseudo") == 2 and labels.count("subcloud") == 3
 
 
 @pytest.mark.parametrize("name", sorted(EMBED_LENGTH))

@@ -55,7 +55,17 @@ def test_port_modules_import_without_jax_flax_yaml_tdwss():
                 "tdwss_torch.tools.step_grads",
                 "tdwss_torch.ops.experimental.brick_plan",
                 "tdwss_torch.ops.experimental.brick_conv",
-                "tdwss_torch.ops.experimental.block_gather"):
+                "tdwss_torch.ops.experimental.block_gather",
+                "tdwss_torch.ops.voxelize", "tdwss_torch.data.dataset",
+                "tdwss_torch.data.loader", "tdwss_torch.engine.train",
+                "tdwss_torch.engine.pseudo", "tdwss_torch.utils.pseudo",
+                "tdwss_torch.utils.checkpoint",
+                "tdwss_torch.utils.logging_util",
+                "tdwss_torch.utils.profiling", "tdwss_torch.utils.flops",
+                "tdwss_torch.cli.common", "tdwss_torch.cli.train",
+                "tdwss_torch.cli.statistics",
+                "tdwss_torch.cli.pseudo_label_generation",
+                "tdwss_torch.cli.validation"):
         assert mod in names
     res = _run(names)
     assert res.returncode == 0, res.stderr[-3000:]

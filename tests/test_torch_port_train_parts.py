@@ -74,8 +74,11 @@ def test_classification_loss_and_gradient_match_reference(masked):
     out.backward()
     np.testing.assert_allclose(float(out.detach()), float(ref), **TIGHT)
     np.testing.assert_allclose(x.grad.numpy(), np.asarray(ref_g), **TIGHT)
-    with pytest.raises(NotImplementedError):     # point CE: not ported
-        Classification(x, torch.zeros(5, dtype=torch.long))
+    # 1-D labels dispatch to the point cross-entropy, as the reference's
+    point_labels = np.array([3, -100, 7, 0, 19])
+    got = Classification(x.detach(), torch.from_numpy(point_labels))
+    want = ref_classification(jnp.asarray(logits), jnp.asarray(point_labels))
+    np.testing.assert_allclose(float(got), float(want), **TIGHT)
 
 
 def test_train_transform_and_jitter_match_reference():
