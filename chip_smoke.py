@@ -8,9 +8,13 @@ SparseConvUNet at the bench width (m=32, block_reps=2, residual blocks,
 FCN-family encoders of two shipped configs at their own widths
 (``configs/3DUNetWithText_scannet_fcnet_baseline_narrower.yaml``:
 SparseConvFCNetNarrow, m=16, planes 16..256, 5 levels;
-``..._finer.yaml``: SparseConvFCNet, m=16, 7 levels), all on the bench
-batch (5 synthetic scenes of 150,000 points, ``max_points`` 786,432, in
-place of the configs' 6 scenes in 4,194,304) with seeded random weights,
+``..._finer.yaml``: SparseConvFCNet, m=16, 7 levels), and training of
+MultiLabelContrastive with its text tower
+(``configs/3DUNetWithText_scannet_fcnet.yaml``: SparseConvFCNet, m=16, 7
+levels; text tower width 256, 12 layers, context 120, vocab 49,408), all
+on the bench batch (5 synthetic scenes of 150,000 points with their
+descriptions, ``max_points`` 786,432, in place of the configs' 6 or 8
+scenes in 4,194,304 or 2,097,152) with seeded random weights,
 drives the experimental brick engine at the bench level 0, and drives
 the weak-supervision loop through the port's entry points (``Trainer``,
 the pseudo-label stage, ``FullySupervised`` and the train CLI) at
@@ -39,7 +43,11 @@ SparseConvFCNet's width, and checks them:
    (CUDA events around each kernel wrapper call); the per-point logits
    of a full forward, bit for bit over two forwards, and held against the
    same forward through the plain versions on the card;
-6. training, per path (UNet 3 steps, Narrow 3 steps, FCNet 1 step): one
+6. training, per path (UNet 3 steps, Narrow 3 steps, FCNet 1 step, Text
+   3 steps: ``configs/3DUNetWithText_scannet_fcnet.yaml``,
+   MultiLabelContrastive over SparseConvFCNet with its 12-layer text
+   tower at width 256 on the scenes' descriptions, the batch's
+   tokenizing timed apart): one
    batch through ``train_collate`` -> ``attach_host_plans`` ->
    ``slim_batch_for_train`` (host, timed), then ``train_step``s (forward
    with batch norm in train mode, scene pooling, Classification loss,
@@ -51,7 +59,14 @@ SparseConvFCNet's width, and checks them:
    the plain versions, and the step's loss held against them; for the
    UNet also two bf16 steps' gradients bit for bit and the f32 step (see
    the tolerances below); the identity unpools of the Narrow batch timed
-   per level;
+   per level; for the text path its text loss and total in bf16 within
+   TEXT_LOSS_RTOL, for model seeds 0-7, and a planted K1 fault beyond it,
+   two bf16 steps' gradients bit for bit,
+   an f32 step's loss parts against the plain versions, the text tower's
+   features, ``TextContrastive`` and the text mask on the card against
+   the same weights on the CPU, the tower's forward and backward ms
+   (CUDA events) and share of a warm step, and no synchronising call in
+   a warm text step;
 7. forward sweep: K1 at every distinct (form, C, Cout, K) that the paths
    of 5-6 launched, on their own windows, and at a ragged synthetic plan
    (V_out not a multiple of 64, Cout not a multiple of 8, rb in the
@@ -109,7 +124,10 @@ SparseConvFCNet's width, and checks them:
     K2 must have run, every launch on the tensor-core body; one
     FullySupervised step goes through the checks of 6 with two bf16 steps'
     gradients bit for bit, and ``devoxelize_seg``'s backward repeats bit
-    for bit at the head's width; last, ``python -m tdwss_torch.cli.train
+    for bit at the head's width; a ``Trainer`` over
+    ``3DUNetWithText_scannet_fcnet.yaml`` fits one epoch on the train
+    scenes' descriptions (tokenized in the loader's threads), K1 and K2
+    launched on the tensor-core body; last, ``python -m tdwss_torch.cli.train
     --config configs/smoke_cpu.yaml --epochs 1`` runs on the card as a
     subprocess and must print its mIoU;
 13. one JSON line with the numbers of every ported kernel (K1-K7, each
@@ -190,14 +208,46 @@ LOGITS_MAX_TOL, LOGITS_MEAN_TOL = 0.05, 0.01
 #   check is what catches it.  In bf16 the whole-step gradients are held
 #   only to be reproducible (see ``step_grads --dtype bf16`` and
 #   PERF.md for the spread against the plain versions).
+# - The text loss in bf16 (TEXT_LOSS_RTOL): it multiplies the
+#   scene-pooled features by text features of norm ~21 (similarities
+#   -12..8 at the seeded weights).  In bf16 the pooled features of a run
+#   through the kernels and one through the plain versions differ by up
+#   to 1.4% of their largest (one-ulp roundings carried through the 7
+#   levels, batch norm over 59 voxels at the deepest), which moves the
+#   text loss by up to 2.0% and the total by up to 1.7% over model seeds
+#   0-7; in f32 the two runs agree within 3e-6.  A planted fault, tap 0 of
+#   the weight zeroed in the forward's first K1 launch only, moves them by
+#   4.2% and 3.4%; on an H100 80GB HBM3 (700 W), printed by
+#   ``check_text_loss_limit``.  So the text path holds its text loss and
+#   total in bf16 to 3%, between the two (the script checks that the
+#   limit still lies between them), its Classification part to
+#   LOSS_RTOL, and its whole loss and parts in f32 to LOSS_RTOL_F32.  Its
+#   f32 gradients are not held per tensor: the attention's key bias has a
+#   zero gradient in exact arithmetic (softmax ignores a shift common to a
+#   query's keys), so both runs give rounding noise there.
 LOSS_RTOL = 1e-2
 LOSS_RTOL_F32, GRAD_RTOL_F32 = 1e-5, 0.05
+TEXT_LOSS_RTOL = 3e-2
+TEXT_LOSS_SEEDS = tuple(range(1, 8))    # beside phase_train's seed 0
 TRAIN_STEPS = 3
 STEPS_PER_EPOCH = 100
 # The reference's K2 width gate (tdwss/ops/sparse_conv.py:936, :1455)
 GATHER_MAX_C = 128
 # The brick engine's width: the bench m.
 BRICK_C = 32
+# The text path: MultiLabelContrastive over SparseConvFCNet with its
+# text tower (width 256, 12 layers, context 120, vocab 49,408, f32), cut
+# to the bench batch like the other configs.
+TEXT_CONFIG = "3DUNetWithText_scannet_fcnet.yaml"
+TEXT_STEPS = 3
+# The text tower's features on the card vs the same weights on the CPU,
+# both f32 with TF32 off: sums of 256-1024 products in another order
+# through 12 layers, max|d| <= 1e-4 * max|cpu|; TextContrastive's value
+# from those features within 1e-4 relative; the text mask equal.
+TEXT_TOL = 1e-4
+# Samples (CUDA events) of the tower's forward and backward, after one
+# warm-up.
+TEXT_TIMED = 10
 # K7, K1/K4, K2, K3/K5 and K6 take 0.05-1 ms, the same order as their
 # wrappers' host work: each timed sample of them, their plain versions and the
 # library call, and each bf16 time of the forward and backward sweeps, is
@@ -1008,13 +1058,15 @@ def plan_train_batch(cfg, scenes, label):
 
 
 def phase_train(label, cfg, planned, host, host_s, device, steps,
-                full_checks, repro=False):
+                full_checks, repro=False, loss_rtol=None, f32_loss=False):
     """``steps`` training steps of ``cfg`` on one planned batch, launches
-    against the plans' routing, and one step's loss and layer-by-layer
-    backward against the plain versions.  With ``full_checks`` (the
-    bench UNet) or ``repro`` also two bf16 steps' gradients bit for bit;
-    with ``full_checks`` also the f32 step (layer by layer, loss,
-    gradients per tensor, bit for bit)."""
+    against the plans' routing, and one step's loss parts and
+    layer-by-layer backward against the plain versions, each part held
+    to its limit in ``loss_rtol`` (every part to LOSS_RTOL if not given).
+    With ``f32_loss`` also an f32 step's loss parts (LOSS_RTOL_F32).
+    With ``full_checks`` (the bench UNet) or ``repro`` also two bf16
+    steps' gradients bit for bit; with ``full_checks`` also the f32 step
+    (layer by layer, loss, gradients per tensor, bit for bit)."""
     import torch
 
     from tdwss_torch.data.plans import slim_batch_for_train
@@ -1074,13 +1126,15 @@ def phase_train(label, cfg, planned, host, host_s, device, steps,
     del model, opt, sched, before
 
     def loss_and_grads(model, c, b, ctx=contextlib.nullcontext()):
+        """({loss part: value}, {parameter: gradient}) of one step."""
         model.zero_grad(set_to_none=True)
         with ctx:
-            loss, _ = compute_loss(c, model, b)
+            loss, aux = compute_loss(c, model, b)
             loss.backward()
         torch.cuda.synchronize()
-        return float(loss.detach()), {n: p.grad.detach().float().clone()
-                                      for n, p in model.named_parameters()}
+        return ({k: float(v.detach()) for k, v in aux.items()},
+                {n: p.grad.detach().float().clone()
+                 for n, p in model.named_parameters()})
 
     def ratios(ga, gb):
         out = []
@@ -1091,15 +1145,21 @@ def phase_train(label, cfg, planned, host, host_s, device, steps,
                         (0.0 if diff == 0 else math.inf), n))
         return sorted(out, reverse=True)
 
-    def check_loss(dtype, lk, lp, tol):
-        rel = abs(lk - lp) / abs(lp)
-        log(f"{label}: one {dtype} step's loss through the kernels vs the "
-            f"plain versions: {lk:.8f} vs {lp:.8f} (relative {rel:.3g}, "
-            f"limit {tol})")
-        if not rel <= tol:
-            raise AssertionError(f"{label}: the {dtype} training loss "
-                                 "through the kernels disagrees with the "
-                                 "plain versions")
+    def check_loss(dtype, lk, lp, limits):
+        """Each loss part through the kernels vs the plain versions,
+        held to its limit in ``limits``."""
+        if limits.keys() != lk.keys():
+            raise AssertionError(f"{label}: loss parts {sorted(lk)} but "
+                                 f"limits for {sorted(limits)}")
+        for part in lk:
+            rel = abs(lk[part] - lp[part]) / abs(lp[part])
+            log(f"{label}: one {dtype} step's {part} through the kernels vs "
+                f"the plain versions: {lk[part]:.8f} vs {lp[part]:.8f} "
+                f"(relative {rel:.3g}, limit {limits[part]})")
+            if not rel <= limits[part]:
+                raise AssertionError(f"{label}: the {dtype} training loss "
+                                     "through the kernels disagrees with "
+                                     "the plain versions")
 
     def layer_by_layer(model, c, b, dtype, tols):
         with layer_by_layer_check(*tols) as checked:
@@ -1111,11 +1171,24 @@ def phase_train(label, cfg, planned, host, host_s, device, steps,
             f"{checked['dfeats']:.3g} (limit {tols[0]:.3g}), dW "
             f"{checked['dw']:.3g} (limit {tols[1]})")
 
+    def f32_run():
+        c32 = copy.deepcopy(cfg)
+        c32.engine.compute_dtype = "float32"
+        return (build_model(c32, seed=0, device=device), c32,
+                slim_batch_for_train(planned, c32).to(device))
+
     m16 = build_model(cfg, seed=0, device=device)
     layer_by_layer(m16, cfg, batch, "bf16", (KERNEL_TOL, DW_TOL))
     lk, gk = loss_and_grads(m16, cfg, batch)
     lp, _ = loss_and_grads(m16, cfg, batch, plain_versions())
-    check_loss("bf16", lk, lp, LOSS_RTOL)
+    check_loss("bf16", lk, lp, loss_rtol or dict.fromkeys(lk, LOSS_RTOL))
+    if f32_loss and not full_checks:
+        m32, cfg32, b32 = f32_run()
+        lk32 = loss_and_grads(m32, cfg32, b32)[0]
+        check_loss("f32", lk32,
+                   loss_and_grads(m32, cfg32, b32, plain_versions())[0],
+                   dict.fromkeys(lk32, LOSS_RTOL_F32))
+        del m32, b32
     if not (full_checks or repro):
         return launches
 
@@ -1133,15 +1206,12 @@ def phase_train(label, cfg, planned, host, host_s, device, steps,
     if not full_checks:
         return launches
     # f32: layer by layer, the loss, the gradients per tensor, bit for bit
-    cfg32 = copy.deepcopy(cfg)
-    cfg32.engine.compute_dtype = "float32"
-    m32 = build_model(cfg32, seed=0, device=device)
-    b32 = slim_batch_for_train(planned, cfg32).to(device)
+    m32, cfg32, b32 = f32_run()
     layer_by_layer(m32, cfg32, b32, "f32", (KERNEL_TOL_F32, DW_TOL))
     lk, gk = loss_and_grads(m32, cfg32, b32)
     _, gk2 = loss_and_grads(m32, cfg32, b32)
     lp, gp = loss_and_grads(m32, cfg32, b32, plain_versions())
-    check_loss("f32", lk, lp, LOSS_RTOL_F32)
+    check_loss("f32", lk, lp, dict.fromkeys(lk, LOSS_RTOL_F32))
     rs = ratios(gk, gp)
     same = all(torch.equal(gk[n], gk2[n]) for n in gk)
     log(f"{label}: one f32 step, ||g_kern - g_plain|| / ||g_plain|| over "
@@ -1154,6 +1224,226 @@ def phase_train(label, cfg, planned, host, host_s, device, steps,
                              "disagree with the plain versions or are not "
                              "reproducible")
     return launches
+
+
+def text_config():
+    """``configs/3DUNetWithText_scannet_fcnet.yaml`` cut to the bench
+    batch (5 scenes in 786,432 points for its 8 in 2,097,152)."""
+    from tdwss_torch.config import load_config
+
+    return cut_to_bench_batch(load_config(os.path.join(HERE, "configs",
+                                                       TEXT_CONFIG)))
+
+
+def phase_text(scenes, device):
+    """The text path: tokenizing one batch on the host (timed), the train
+    batch planned, TEXT_STEPS training steps through ``phase_train``
+    (launches against the plans' routing, tensor-core bodies, layer by
+    layer and the loss parts against the plain versions, the text loss
+    and total at TEXT_LOSS_RTOL, bf16 gradients bit for bit, every
+    parameter moved, the text tower's included, and an f32 step's loss
+    parts against the plain versions), TEXT_LOSS_RTOL against more seeds
+    and a planted fault (``check_text_loss_limit``), then the text parts
+    against the CPU (``check_text_parts``).  Returns the launches."""
+    from tdwss_torch.data.collate import collate_text
+
+    cfg = text_config()
+    t = time.perf_counter()
+    text = collate_text(scenes, cfg)
+    tok_s = time.perf_counter() - t
+    used = (text.tokens != 0).any(-1).sum(-1)
+    log(f"Text: tokenizing {int(used.sum())} descriptions of {len(scenes)} "
+        f"scenes into {tuple(text.tokens.shape)} int32 ids (vocab "
+        f"{cfg.text_model.vocab_size}) on the host: {tok_s:.4f} s per "
+        f"batch; slots used per scene {used.tolist()} of "
+        f"{cfg.text_data.cropped_texts}")
+    if not (used.min() > 0 and used.max() < cfg.text_data.cropped_texts):
+        raise AssertionError("Text: the batch should fill some slots of "
+                             "every scene and leave some empty")
+    planned, host, host_s = plan_train_batch(cfg, scenes, "Text")
+    launches = phase_train("Text", cfg, planned, host, host_s, device,
+                           TEXT_STEPS, full_checks=False, repro=True,
+                           loss_rtol={"cls_loss": LOSS_RTOL,
+                                      "text_loss": TEXT_LOSS_RTOL,
+                                      "loss": TEXT_LOSS_RTOL},
+                           f32_loss=True)
+    del planned
+    check_text_loss_limit(cfg, host, device)
+    check_text_parts(cfg, host, device)
+    return launches
+
+
+def check_text_loss_limit(cfg, host, device):
+    """TEXT_LOSS_RTOL between sound readings and a fault: the bf16 text
+    loss and total through the kernels vs the plain versions for the
+    models of seed 0 and TEXT_LOSS_SEEDS, each within the limit, and for
+    seed 0 with a planted K1 fault (tap 0 of the weight zeroed in the
+    forward's first launch only) beyond it."""
+    import torch
+
+    from tdwss_torch.engine.steps import compute_loss
+    from tdwss_torch.models.meta_arch import build_model
+
+    batch = host.to(device)
+    held = ("text_loss", "loss")
+
+    def parts(model, ctx):
+        with torch.no_grad(), ctx:
+            _, aux = compute_loss(cfg, model, batch)
+        return {k: float(aux[k]) for k in held}
+
+    def rel(a, b):
+        return max(abs(a[k] - b[k]) / abs(b[k]) for k in held)
+
+    calls = []
+
+    def tap0_first(name, fn):
+        w_at = 4 if name == "windowed_matmul_sub" else 3
+
+        def faulted(*args, **kwargs):
+            calls.append(name)
+            if len(calls) == 1:
+                args = list(args)
+                args[w_at] = args[w_at].clone()
+                args[w_at][0] = 0
+            return fn(*args, **kwargs)
+        return faulted
+
+    sound = []
+    for seed in (0,) + TEXT_LOSS_SEEDS:
+        model = build_model(cfg, seed=seed, device=device)
+        plain = parts(model, plain_versions())
+        sound.append(rel(parts(model, contextlib.nullcontext()), plain))
+        if seed == 0:
+            with patched_entries(("windowed_matmul_sub", "windowed_matmul"),
+                                 tap0_first):
+                fault = rel(parts(model, contextlib.nullcontext()), plain)
+        del model
+    log(f"Text: bf16 text loss and total through the kernels vs the plain "
+        f"versions, largest relative difference, model seeds 0-"
+        f"{TEXT_LOSS_SEEDS[-1]}: " + ", ".join(f"{r:.4g}" for r in sound)
+        + f" (limit {TEXT_LOSS_RTOL}); seed 0 with tap 0 of the weight "
+        f"zeroed in the first of the forward's {len(calls)} K1 launches: "
+        f"{fault:.4g} (must exceed the limit)")
+    if not (max(sound) <= TEXT_LOSS_RTOL < fault):
+        raise AssertionError("Text: TEXT_LOSS_RTOL does not lie between the "
+                             "sound readings and the planted fault")
+
+
+def check_text_parts(cfg, host, device):
+    """On one seeded model of ``cfg``: the text tower's features,
+    ``TextContrastive``'s value and the text mask on the card against the
+    same weights and inputs on the CPU (f32, TEXT_TOL); the tower's
+    forward and backward ms by CUDA events and their share of a warm
+    step; the tower's device activities (torch.profiler); no
+    synchronising call in a warm text ``train_step``."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tdwss_torch.engine.steps import (make_optimizer, text_mask,
+                                          train_step)
+    from tdwss_torch.models.meta_arch import build_model
+    from tdwss_torch.utils.losses import TextContrastive
+
+    batch = host.to(device)
+    model = build_model(cfg, seed=0, device=device)
+    tokens = batch.text.tokens
+    bt, nt, length = tokens.shape
+
+    def tower(enc, lin, tok):
+        return lin(enc(tok.reshape(-1, length)).reshape(bt, nt, -1))
+
+    with torch.no_grad():
+        _, (gfeats, tfeats, has_text) = model(batch, istrain=True)
+        feats = model.text_encoder(tokens.reshape(-1, length))
+        loss = TextContrastive(gfeats, tfeats, has_text, text_mask(batch.text),
+                               batch.scene_mask)
+        mask = text_mask(batch.text)
+        enc = copy.deepcopy(model.text_encoder).cpu()
+        lin = copy.deepcopy(model.text_linear).cpu()
+        cpu_tok = torch.from_numpy(host.text.tokens)
+        cpu_feats = enc(cpu_tok.reshape(-1, length))
+        cpu_tf = tower(enc, lin, cpu_tok)
+        cpu_loss = TextContrastive(
+            gfeats.cpu(), cpu_tf, torch.from_numpy(host.text.has_text),
+            text_mask(host.text.to("cpu")),
+            torch.from_numpy(host.scene_mask))
+    with torch.no_grad(), plain_versions():
+        _, (plain_g, plain_tf, _) = model(batch, istrain=True)
+    sims = torch.einsum("btm,cm->btc", tfeats, gfeats)
+    plain_sims = torch.einsum("btm,cm->btc", plain_tf, plain_g)
+    dg = ((gfeats - plain_g).abs().max() / plain_g.abs().max()).item()
+    log(f"Text: bf16 pooled scene features {tuple(gfeats.shape)} through "
+        f"the kernels vs the plain versions: max|d| / max|plain| {dg:.3g}"
+        f"; text feature norm {tfeats.norm(dim=-1).mean().item():.4g}; "
+        f"text-scene similarities {plain_sims.min().item():.4g} .. "
+        f"{plain_sims.max().item():.4g}, max|d| "
+        f"{(sims - plain_sims).abs().max().item():.4g} (see "
+        f"TEXT_LOSS_RTOL)")
+    want_mask = host.text.valid[:, None] & (host.text.tokens != 0).any(-1)
+    err = (feats.cpu() - cpu_feats).abs().max().item()
+    scale = cpu_feats.abs().max().item()
+    rel = abs(loss.item() - cpu_loss.item()) / abs(cpu_loss.item())
+    same_mask = np.array_equal(mask.cpu().numpy(), want_mask)
+    log(f"Text: tower features {tuple(feats.shape)} on the card vs the "
+        f"same weights on the CPU (f32): max|d| {err:.3g} (limit "
+        f"{TEXT_TOL} * {scale:.4g}); TextContrastive {loss.item():.8f} vs "
+        f"{cpu_loss.item():.8f} (relative {rel:.3g}, limit {TEXT_TOL}); "
+        f"text mask ({int(want_mask.sum())} of {want_mask.size} slots) "
+        f"equal: {same_mask}")
+    if not (err <= TEXT_TOL * scale and rel <= TEXT_TOL and same_mask):
+        raise AssertionError("Text: the text parts on the card disagree "
+                             "with the CPU")
+    del enc, lin, cpu_feats, cpu_tf
+
+    gen = torch.Generator(device=device).manual_seed(5)
+    cot = torch.randn(tfeats.shape, generator=gen, device=device)
+    fwd, bwd = [], []
+
+    def fwd_bwd():
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        out = tower(model.text_encoder, model.text_linear, tokens)
+        ev[1].record()
+        (out * cot).sum().backward()
+        ev[2].record()
+        return ev
+
+    for i in range(TEXT_TIMED + 1):
+        model.zero_grad(set_to_none=True)
+        ev = fwd_bwd()
+        ev[2].synchronize()
+        if i:
+            fwd.append(ev[0].elapsed_time(ev[1]))
+            bwd.append(ev[1].elapsed_time(ev[2]))
+    model.zero_grad(set_to_none=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fwd_bwd()
+        torch.cuda.synchronize()
+    activities = sum(1 for e in prof.events()
+                     if e.device_type == DeviceType.CUDA
+                     and not e.is_user_annotation)
+    step_ms = SPLITS["Text: one warm training step"]["device"][0]
+    f_ms, b_ms = statistics.median(fwd), statistics.median(bwd)
+    log(f"Text: text tower ({cfg.text_model.layers} layers, width "
+        f"{cfg.text_model.width}, {bt * nt} sequences x {length} tokens, "
+        f"f32) + text_linear: forward {f_ms:.3f} ms, backward {b_ms:.3f} ms "
+        f"(median of {TEXT_TIMED}, CUDA events); {f_ms + b_ms:.3f} ms = "
+        f"{(f_ms + b_ms) / step_ms:.1%} of a warm text step's "
+        f"{step_ms:.3f} ms; {activities} device activities per forward + "
+        f"backward (torch.profiler)")
+    opt, sched = make_optimizer(cfg, model, STEPS_PER_EPOCH)
+    for _ in range(2):
+        train_step(cfg, model, opt, sched, batch)
+    syncs = list_syncs(lambda: train_step(cfg, model, opt, sched, batch))
+    log(f"Text: synchronising calls in one warm text train_step: "
+        f"{len(syncs)} sites: {json.dumps(syncs)}")
+    if syncs:
+        raise AssertionError("the text train_step synchronises with the "
+                             "host")
 
 
 def list_syncs(fn):
@@ -1943,10 +2233,14 @@ def phase_loop(val_scenes, device):
        the plans' routing, tensor-core bodies, layer by layer against the
        plain versions, loss, bf16 gradients bit for bit) and
        ``devoxelize_seg``'s backward bit for bit;
-    5. ``python -m tdwss_torch.cli.train --config configs/smoke_cpu.yaml
+    5. ``Trainer`` over ``3DUNetWithText_scannet_fcnet.yaml``
+       (MultiLabelContrastive, cut to the bench batch) on the train
+       scenes with their descriptions: ``fit(epochs=1)``, 2 steps (the
+       tokenizing in the loader's threads) and 1 validation rep;
+    6. ``python -m tdwss_torch.cli.train --config configs/smoke_cpu.yaml
        --epochs 1`` as a subprocess on the card.
 
-    Returns (launches of 1-3, launches of 4)."""
+    Returns (launches of 1-3, launches of 4, launches of 5)."""
     import shutil
     import tempfile
 
@@ -1964,7 +2258,7 @@ def phase_loop(val_scenes, device):
 
     t = time.perf_counter()
     scenes = make_dataset(LOOP_SCENES, num_points=POINTS_PER_SCENE, seed=11,
-                          with_text=False)
+                          with_text=True)
     log(f"loop: {LOOP_SCENES} train scenes x {POINTS_PER_SCENE} points in "
         f"{time.perf_counter() - t:.2f} s")
     cwd = os.getcwd()
@@ -2117,6 +2411,34 @@ def phase_loop(val_scenes, device):
             fs_cfg.pointcloud_model), device)
         del planned, host
 
+        text_cfg = text_config()
+        reset_sticky_plans()
+        torch.cuda.synchronize()
+        W.reset_launches()
+        t = time.perf_counter()
+        tt = train_mod.Trainer(text_cfg, scenes, val_scenes, device=device,
+                               verbose=False)
+        log(f"loop: Trainer ({text_cfg.training_name}, MultiLabelContrastive "
+            f"over {text_cfg.pointcloud_model.name} with a "
+            f"{text_cfg.text_model.layers}-layer text tower) built, plan "
+            f"shapes warmed over epochs {tt.warmed_epochs}: "
+            f"{time.perf_counter() - t:.2f} s")
+        t = time.perf_counter()
+        hist = tt.fit(epochs=1)
+        torch.cuda.synchronize()
+        text_launches = dict(W.launches)
+        log(f"loop: MultiLabelContrastive fit(epochs=1): {tt.spe} steps "
+            f"(Classification + TextContrastive) and "
+            f"{text_cfg.pointcloud_data.val_reps} validation rep in "
+            f"{time.perf_counter() - t:.2f} s; mean loss {hist[0]:.6f}; "
+            f"launches {text_launches}")
+        check_bodies("loop, text Trainer")
+        if not (len(hist) == 1 and math.isfinite(hist[0])
+                and text_launches[W.K1] and text_launches[W.K2]):
+            raise AssertionError(f"loop: the text Trainer's epoch failed: "
+                                 f"{hist}, {text_launches}")
+        del tt
+
         t = time.perf_counter()
         env = dict(os.environ, PYTHONPATH=HERE)
         res = subprocess.run(
@@ -2135,7 +2457,7 @@ def phase_loop(val_scenes, device):
     finally:
         os.chdir(cwd)
         shutil.rmtree(work, ignore_errors=True)
-    return launches, fs_launches
+    return launches, fs_launches, text_launches
 
 
 def main() -> int:
@@ -2178,7 +2500,7 @@ def main() -> int:
     cfg = bench_config()
     t = time.perf_counter()
     scenes = make_dataset(NUM_SCENES, num_points=POINTS_PER_SCENE, seed=7,
-                          with_text=False)
+                          with_text=True)
     log(f"data: {NUM_SCENES} scenes x {POINTS_PER_SCENE} points in "
         f"{time.perf_counter() - t:.2f} s")
     reset_sticky_plans()
@@ -2234,6 +2556,7 @@ def main() -> int:
         paths["FCNet"] = phase_train("FCNet", fcnet_cfg, *fcnet_batch,
                                      device, 1, full_checks=False)
         del fcnet_batch
+        paths["Text"] = phase_text(scenes, device)
     phase_profile(cfg, unet_batch[1], device, args.trace_dir)
     del unet_batch
     n = phase_fwd_sweep(shapes, device, gen)
@@ -2254,7 +2577,8 @@ def main() -> int:
     del dw_shapes
     k7_row, paths["brick"] = phase_brick(batch, device, gen)
     rows.append(k7_row)
-    paths["loop"], paths["FullySupervised"] = phase_loop(scenes, device)
+    (paths["loop"], paths["FullySupervised"],
+     paths["loop, text Trainer"]) = phase_loop(scenes, device)
     # The kernels line lists every ported kernel with its launches summed
     # over the paths (0 for K4 and K5: no plan of any path is flat-form).
     for row in rows:

@@ -16,7 +16,10 @@ Ported so far: multi-view-vote validation
 loop through its entry points: :class:`tdwss_torch.engine.train.Trainer`
 over the prefetching train loader, the pseudo-label stage
 (:mod:`tdwss_torch.engine.pseudo`) and the command-line entry points
-(``python -m tdwss_torch.cli.<name>``).
+(``python -m tdwss_torch.cli.<name>``); and the text branch:
+``MultiLabelContrastive`` with its text tower
+(:mod:`tdwss_torch.models.transformer`), the ``TextContrastive`` loss and
+the tokenizer (:mod:`tdwss_torch.data.tokenizer`).
 """
 
 __version__ = "0.1.0"

@@ -25,6 +25,15 @@ class PointcloudDataConfig:
 
 
 @dataclass
+class TextDataConfig:
+    max_seq_len: int = 120
+    cropped_texts: int = 10
+    # CLIP-format BPE merges file ("" = the shipped ScanNet-trained asset,
+    # falling back to HashTokenizer if that is missing)
+    bpe_vocab_path: str = ""
+
+
+@dataclass
 class PointcloudModelConfig:
     name: str = "SparseConvUNet"
     m: int = 16
@@ -35,6 +44,18 @@ class PointcloudModelConfig:
     depth: int = 7                   # SparseConvFCNet's levels
     n_planes: Optional[List[int]] = None   # FCN variants' planes after m
     downsample: List[int] = field(default_factory=lambda: [2, 2])
+
+
+@dataclass
+class TextModelConfig:
+    name: str = "TextTransformer"
+    context_length: int = 120
+    width: int = 256
+    layers: int = 12
+    vocab_size: int = 49408
+    # CLIPTransformer: a local .npz of converted weights (read by nothing,
+    # as in the reference; see tdwss_torch.models.transformer)
+    clip_weights_path: Optional[str] = None
 
 
 @dataclass
@@ -77,6 +98,7 @@ class Config:
         default_factory=PointcloudDataConfig)
     label: str = "scene_level"       # scene_level | pseudo | subcloud
     has_text: bool = False
+    text_data: TextDataConfig = field(default_factory=TextDataConfig)
     in_radius: float = 2.0           # subcloud sampling radius (metres)
     pseudo_label_path: str = ""
     pseudo_label_suffix: str = "_pseudo_label.npy"
@@ -84,6 +106,7 @@ class Config:
     box_path: str = ""               # GSS proposals <scene>_prop.npy
     pointcloud_model: PointcloudModelConfig = field(
         default_factory=PointcloudModelConfig)
+    text_model: TextModelConfig = field(default_factory=TextModelConfig)
     loss: LossConfig = field(default_factory=LossConfig)
     pretrain: str = ""               # checkpoint directory seeding a fresh run
     epochs: int = 512
@@ -102,6 +125,8 @@ class Config:
 _DATACLASS_FIELDS = {
     (Config, "pointcloud_data"): PointcloudDataConfig,
     (Config, "pointcloud_model"): PointcloudModelConfig,
+    (Config, "text_data"): TextDataConfig,
+    (Config, "text_model"): TextModelConfig,
     (Config, "loss"): LossConfig,
     (Config, "engine"): EngineConfig,
     (Config, "mesh"): MeshConfig,

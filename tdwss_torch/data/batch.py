@@ -1,9 +1,10 @@
-"""Fixed-capacity point batch (twin of ``tdwss.data.batch.PointBatch``).
+"""Fixed-capacity point batch (twin of ``tdwss.data.batch.PointBatch``
+and ``TextBatch``).
 
 Host batches hold numpy arrays (and, after
 :func:`tdwss_torch.data.plans.slim_batch_for_train`, a bf16 CPU tensor of
 voxel features); :meth:`PointBatch.to` moves every array and tensor (and
-the plans) to a torch device.
+the plans and the text) to a torch device.
 """
 
 from __future__ import annotations
@@ -16,6 +17,28 @@ import numpy as np
 import torch
 
 from tdwss_torch.ops.plan import _to_tensor
+
+
+def _move(obj, device, non_blocking: bool):
+    """A dataclass with every array and tensor field on ``device``."""
+    kw = {f.name: _to_tensor(getattr(obj, f.name), device, non_blocking)
+          for f in dataclasses.fields(obj)
+          if isinstance(getattr(obj, f.name), (np.ndarray, torch.Tensor))}
+    return dataclasses.replace(obj, **kw)
+
+
+@dataclass
+class TextBatch:
+    """Padded text of a train batch: tokens (B', T, L) int32 ids, 0-padded
+    (ids reach 49,407, past int16); has_text (B',) int32, the owning scene
+    of each row; valid (B',) bool, the rows whose scene has texts."""
+
+    tokens: Any
+    has_text: Any
+    valid: Any
+
+    def to(self, device, non_blocking: bool = False) -> "TextBatch":
+        return _move(self, device, non_blocking)
 
 
 @dataclass
@@ -36,6 +59,7 @@ class PointBatch:
     vox_feats: Optional[Any] = None
     point2voxel: Optional[Any] = None
     point_perm: Optional[Any] = None
+    text: Optional[TextBatch] = None
 
     @property
     def num_points(self) -> int:
@@ -49,18 +73,14 @@ class PointBatch:
         return dataclasses.replace(self, **kw)
 
     def to(self, device, non_blocking: bool = False) -> "PointBatch":
-        """Every array and tensor (and the plans) on ``device``; with
-        ``non_blocking``, host arrays go through pinned memory and the
-        copies to a card are asynchronous on the current stream (see
-        :func:`tdwss_torch.ops.plan._to_tensor`)."""
-        kw = {}
-        for f in dataclasses.fields(self):
-            v = getattr(self, f.name)
-            if isinstance(v, (np.ndarray, torch.Tensor)):
-                kw[f.name] = _to_tensor(v, device, non_blocking)
-            elif f.name == "plans" and v is not None:
-                kw[f.name] = v.to(device, non_blocking)
-        return dataclasses.replace(self, **kw)
+        """Every array and tensor (and the plans and the text) on
+        ``device``; with ``non_blocking``, host arrays go through pinned
+        memory and the copies to a card are asynchronous on the current
+        stream (see :func:`tdwss_torch.ops.plan._to_tensor`)."""
+        out = _move(self, device, non_blocking)
+        kw = {f: getattr(self, f).to(device, non_blocking)
+              for f in ("plans", "text") if getattr(self, f) is not None}
+        return dataclasses.replace(out, **kw)
 
     def tensors(self) -> Iterator[torch.Tensor]:
         """Every tensor of the batch and its plans."""

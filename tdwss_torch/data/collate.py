@@ -3,9 +3,10 @@
 
 Every batch is padded to the static ``max_points`` capacity and carries
 masks; if the scenes exceed it, a uniform random subset is kept, and
-:class:`CollateStats` counts the points seen and dropped.  Text tokens
-and proposal boxes are not collated (the text branch is not ported, and
-no ported model reads the boxes).
+:class:`CollateStats` counts the points seen and dropped.  Train batches
+of text configs carry the scenes' descriptions as token ids
+(:class:`TextBatch`); proposal boxes are not collated (no ported model
+reads them).
 """
 
 from __future__ import annotations
@@ -20,8 +21,9 @@ from tdwss_torch import NUM_CLASSES
 from tdwss_torch.config import Config
 from tdwss_torch.data.augment import (color_jitter, scene_label_from_points,
                                       train_transform, val_transform)
-from tdwss_torch.data.batch import PointBatch
+from tdwss_torch.data.batch import PointBatch, TextBatch
 from tdwss_torch.data.synthetic import Scene
+from tdwss_torch.data.tokenizer import get_tokenizer, tokenize
 
 
 @dataclass
@@ -73,9 +75,11 @@ def train_collate(scenes: Sequence[Scene], cfg: Config,
     ``subcloud``, are scenes too): one augmented view per scene, colour
     jitter, scene tags from the kept points' labels, and under label
     ``pseudo`` the scenes' pseudo labels as the point labels.  The draws
-    from ``rng`` are the reference's, in its order."""
-    if cfg.has_text:
-        raise NotImplementedError("the text branch is not ported yet")
+    from ``rng`` are the reference's, in its order.
+
+    Under ``has_text`` each scene's first ``cropped_texts`` descriptions
+    become a (cropped_texts, max_seq_len) row of token ids (zeros for a
+    scene without texts); tokenizing draws nothing from ``rng``."""
     pcd = cfg.pointcloud_data
     full_scale = cfg.pointcloud_model.full_scale
     use_pseudo = cfg.label == "pseudo"
@@ -116,7 +120,28 @@ def train_collate(scenes: Sequence[Scene], cfg: Config,
         scene_mask=np.ones(len(scenes), bool),
         point_label=arrays["point_label"],
         point_ids=np.full(cfg.engine.max_points, -1, np.int32),
+        text=collate_text(scenes, cfg) if cfg.has_text else None,
     )
+
+
+def collate_text(scenes: Sequence[Scene], cfg: Config) -> TextBatch:
+    """Token rows of the scenes' first ``cropped_texts`` descriptions;
+    ``has_text`` = the scene index, ``valid`` = the scene has texts."""
+    td = cfg.text_data
+    tokenizer = get_tokenizer(td.bpe_vocab_path or None)
+    tokens = np.zeros((len(scenes), td.cropped_texts, td.max_seq_len),
+                      np.int32)
+    for i, scene in enumerate(scenes):
+        texts = scene.texts[: td.cropped_texts]
+        if texts:
+            rows = tokenize(texts, td.max_seq_len, tokenizer=tokenizer,
+                            vocab_size=cfg.text_model.vocab_size)
+            tokens[i, : rows.shape[0]] = rows
+    return TextBatch(
+        tokens=tokens,
+        has_text=np.arange(len(scenes), dtype=np.int32),
+        valid=np.asarray([bool(s.texts[: td.cropped_texts])
+                          for s in scenes], bool))
 
 
 def val_collate(scenes: Sequence[Scene], cfg: Config,

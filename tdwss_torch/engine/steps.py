@@ -4,7 +4,8 @@
 The training iteration of the reference (train.py:55-81): forward with
 ``istrain=True`` (batch norm in train mode, its running statistics
 updated), the scene-level Classification loss (plus the point-level
-cross-entropy on the pseudo labels in the pseudo-label round), backward
+cross-entropy on the pseudo labels in the pseudo-label round, plus
+``TextContrastive`` for text configs that ask for it), backward
 through the kernels, an Adam step and the StepLR schedule by epoch.
 """
 
@@ -16,7 +17,7 @@ import torch
 
 from tdwss_torch.config import Config
 from tdwss_torch.data.batch import PointBatch
-from tdwss_torch.utils.losses import Classification
+from tdwss_torch.utils.losses import Classification, TextContrastive
 
 
 def make_lr_schedule(cfg: Config, steps_per_epoch: int
@@ -44,11 +45,15 @@ def make_optimizer(cfg: Config, model: torch.nn.Module,
     return opt, sched
 
 
+def text_mask(text) -> torch.Tensor:
+    """(B', T) bool: the description slots that count in the text loss,
+    those of scenes with texts (``valid``) holding a token."""
+    return text.valid[:, None] & (text.tokens != 0).any(dim=-1)
+
+
 def compute_loss(cfg: Config, model, batch: PointBatch
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(loss, aux scalars) of one forward in training mode."""
-    if cfg.has_text and cfg.loss.TextContrastive:
-        raise NotImplementedError("the text loss is not ported yet")
     out, meta = model(batch, istrain=True)
     loss = torch.zeros((), dtype=torch.float32, device=out.device)
     aux = {}
@@ -62,6 +67,14 @@ def compute_loss(cfg: Config, model, batch: PointBatch
                                         mask=batch.valid)
             loss = loss + point_loss
             aux["point_loss"] = point_loss
+    if cfg.has_text and cfg.loss.TextContrastive:
+        gfeats, tfeats, has_text = meta
+        if tfeats is not None:
+            text_loss = TextContrastive(gfeats, tfeats, has_text,
+                                        text_mask=text_mask(batch.text),
+                                        scene_mask=batch.scene_mask)
+            loss = loss + text_loss
+            aux["text_loss"] = text_loss
     aux["loss"] = loss
     return loss, aux
 
@@ -73,8 +86,9 @@ def train_step(cfg: Config, model, optimizer, scheduler, batch: PointBatch
     Returns the loss and aux scalars as detached tensors, with no host
     synchronisation: on a card the call returns once the step is issued,
     not when it is done (``chip_smoke.py`` runs a warm step of the bench
-    UNet and of FullySupervised under ``torch.cuda.set_sync_debug_mode``
-    and fails on any synchronising call).  The host's issue of the step's
+    UNet, of FullySupervised and of MultiLabelContrastive under
+    ``torch.cuda.set_sync_debug_mode`` and fails on any synchronising
+    call).  The host's issue of the step's
     launches can still take as long as the card's work."""
     model.train()
     optimizer.zero_grad(set_to_none=True)

@@ -71,7 +71,9 @@ runpy.run_module(module, run_name="__main__", alter_sys=True)
 
 
 def _run(module, config, cwd, *extra):
-    env = dict(os.environ, PYTHONPATH=REPO)
+    # one intra-op thread: the test workers already share the cores, and a
+    # child with a thread per core slows several-fold under their load
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     return subprocess.run(
         [sys.executable, "-c", _BOOT, module, "--config", config, *extra],
         cwd=cwd, env=env, capture_output=True, text=True, timeout=300)
@@ -134,3 +136,45 @@ def test_entry_points_refuse_without_a_card(tmp_path, name):
     assert r.returncode != 0
     assert "torch.cuda.is_available() is False" in r.stderr
     assert not (tmp_path / "exp").exists()
+
+
+_TINY_TEXT = """\
+GENERAL:
+  training_name: cli_text
+  model_name: MultiLabelContrastive
+DATA:
+  pointcloud_data: {scale: 10, val_reps: 1, batch_size: 2, elastic_deformation: false}
+  label: scene_level
+  has_text: true
+  text_data: {max_seq_len: 16, cropped_texts: 4}
+STRUCTURE:
+  pointcloud_model:
+    name: SparseConvUNet
+    m: 4
+    dimension: 3
+    full_scale: 128
+    block_reps: 1
+    residual_blocks: false
+  text_model: {name: TextTransformer, context_length: 16, width: 64, layers: 2, vocab_size: 1000}
+  loss: {Classification: true, TextContrastive: true}
+Training:
+  epochs: 2
+ENGINE:
+  engine: {max_points: 8192, min_level_capacity: 256}
+"""
+
+
+def test_text_config_trains_through_the_cli(tmp_path):
+    """A small text config (MultiLabelContrastive, Classification +
+    TextContrastive) trains two epochs and validates through the train
+    entry point on the synthetic scenes with their descriptions."""
+    cfg = tmp_path / "text.yaml"
+    cfg.write_text(_TINY_TEXT)
+    r = _run("tdwss_torch.cli.train", str(cfg), tmp_path, "--device", "cpu")
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "2 Train loss" in r.stdout and "mean IOU" in r.stdout
+    ckpts = tmp_path / "exp" / "cli_text" / "checkpoints_torch"
+    assert sorted(os.listdir(ckpts)) == ["epoch_1.pt", "epoch_2.pt"]
+    state = torch.load(ckpts / "epoch_2.pt", map_location="cpu")
+    assert any(k.startswith("text_encoder.resblock_1.")
+               for k in state["model"])

@@ -1,12 +1,13 @@
 """The port's config loader reads the repository's YAML experiment files
 as the reference does, for every field the port keeps; every config
-whose path is ported (MultiLabel or FullySupervised without text, on
-scene-level, pseudo or subcloud labels) builds its model with the
-reference's plane schedule and head width and its first train batch,
-and every other config (the text configs) names what is missing when
-its model or its first batch is built; the encoder width table is the
-reference registry's; the configs that ``chip_smoke.py`` builds in code
-are the YAML files."""
+whose path is ported (MultiLabel or FullySupervised on scene-level,
+pseudo or subcloud labels, MultiLabelContrastive with its text tower)
+builds its model with the reference's plane schedule, head width and
+text widths, and its first train batch (with its token rows for the
+text configs); the CLIP config, which names no ``bpe_vocab_path``, is
+refused with the reference's ``ValueError``; the encoder width table is
+the reference registry's; the configs that ``chip_smoke.py`` builds in
+code are the YAML files."""
 
 import dataclasses
 import glob
@@ -16,6 +17,7 @@ import numpy as np
 import pytest
 
 from tdwss.config import load_config as ref_load_config
+from tdwss.models import build_model as ref_build_model
 from tdwss.models.sparse_encoders import embed_length_of as ref_embed_length
 from tdwss.registry import MODEL_REGISTRY
 from tdwss_torch.config import load_config, parse_yaml_subset
@@ -81,15 +83,18 @@ def test_yaml_subset_reader_edge_cases():
 
 
 def _runs_on_the_port(cfg):
-    return (cfg.model_name in ("MultiLabel", "FullySupervised")
-            and not cfg.has_text)
+    """Every config but the frozen CLIP tower's without the real CLIP
+    vocabulary (the reference refuses it too)."""
+    return not (cfg.has_text and cfg.text_model.name == "CLIPTransformer"
+                and not cfg.text_data.bpe_vocab_path)
 
 
 def _first_batch(cfg):
     """The config's first train batch (collate only) on synthetic scenes:
     subclouds under label ``subcloud``, seeded pseudo labels under
-    ``pseudo``."""
-    scenes = make_dataset(2, num_points=20000, seed=1, with_text=False)
+    ``pseudo``, descriptions under ``has_text``."""
+    scenes = make_dataset(2, num_points=20000, seed=1,
+                          with_text=cfg.has_text)
     if cfg.label == "subcloud":
         scenes = expand_subclouds(scenes, cfg.in_radius)[:2]
     if cfg.label == "pseudo":
@@ -125,22 +130,43 @@ def test_config_builds_its_model_or_names_what_is_missing(path):
         if cfg.label == "pseudo":
             labels = batch.point_label[batch.valid]
             assert (labels == -100).any() and (labels >= 0).any()
+        if not cfg.has_text:
+            assert batch.text is None
+            return
+        tm = ref.text_model
+        tower = model.text_encoder
+        assert (tower.width, tower.layers,
+                tower.positional_embedding.shape[0],
+                tower.token_embedding.num_embeddings) == (
+            tm.width, tm.layers, tm.context_length, tm.vocab_size)
+        embed = ref_embed_length(pc.name, pc.m)
+        assert model.text_linear.in_features == tm.width
+        assert model.text_linear.out_features == embed == width
+        td = ref.text_data
+        tokens = batch.text.tokens
+        assert tokens.shape == (2, td.cropped_texts, td.max_seq_len)
+        assert tokens.dtype == np.int32 and tokens.max() < tm.vocab_size
+        assert batch.text.valid.all() and (tokens[:, 0] != 0).any(-1).all()
         return
-    with pytest.raises(NotImplementedError) as err:
-        model = build_model(cfg, device="cpu")
-        scenes = make_dataset(1, num_points=500, seed=1,
-                              with_text=cfg.has_text)
-        train_collate(scenes, cfg, np.random.default_rng(0))
-    assert cfg.has_text
-    unported = (cfg.model_name if cfg.model_name != "MultiLabel"
-                else "text")
-    assert unported in str(err.value)
+    with pytest.raises(ValueError) as err:
+        build_model(cfg, device="cpu")
+    with pytest.raises(ValueError) as ref_err:
+        ref_build_model(ref)
+    head = "text_model.name=CLIPTransformer requires text_data.bpe_vocab_path"
+    assert str(err.value).startswith(head)
+    assert str(ref_err.value).startswith(head)
 
 
 def test_only_the_text_configs_are_refused():
+    """Of the text configs, only the frozen CLIP tower's (no
+    ``bpe_vocab_path``) is refused; every other config runs."""
     refused = [p for p in CONFIGS if not _runs_on_the_port(load_config(p))]
-    assert len(refused) == 6
-    assert all(load_config(p).has_text for p in refused)
+    assert [os.path.basename(p) for p in refused] == [
+        "3DUNetWithText_scannet_fcnet_CLIP.yaml"]
+    text = [p for p in CONFIGS if load_config(p).has_text]
+    assert len(text) == 6
+    assert all(load_config(p).model_name == "MultiLabelContrastive"
+               for p in text)
     labels = [load_config(p).label for p in CONFIGS
               if _runs_on_the_port(load_config(p))]
     assert labels.count("pseudo") == 2 and labels.count("subcloud") == 3

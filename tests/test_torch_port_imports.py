@@ -65,7 +65,9 @@ def test_port_modules_import_without_jax_flax_yaml_tdwss():
                 "tdwss_torch.cli.common", "tdwss_torch.cli.train",
                 "tdwss_torch.cli.statistics",
                 "tdwss_torch.cli.pseudo_label_generation",
-                "tdwss_torch.cli.validation"):
+                "tdwss_torch.cli.validation", "tdwss_torch.data.tokenizer",
+                "tdwss_torch.models.transformer",
+                "tdwss_torch.models.clip_import", "tdwss_torch.convert"):
         assert mod in names
     res = _run(names)
     assert res.returncode == 0, res.stderr[-3000:]

@@ -49,7 +49,7 @@ def _value(v):
     return v
 
 
-def assert_same_batch(ref, port, ref_only=("text", "box")):
+def assert_same_batch(ref, port, ref_only=("box",)):
     """Every leaf equal; against the reference (``ref_only`` given), the
     port's spill order, which the reference lacks, aside."""
     ref_l = dict(_leaves(ref))

@@ -65,9 +65,8 @@ def _assert_same(ref, port):
     # the port-only spill order of each windowed plan (grouping of the
     # spill entries by owner) has no reference counterpart
     port_l = {k: v for k, v in _leaves(port) if ".spill_order" not in k}
-    # the port's PointBatch has no text/box leaves (val batches carry none)
-    for key in ("text", "box"):
-        assert ref_l.pop(f".{key}", None) is None
+    # the port's PointBatch has no box leaf (val batches carry none)
+    assert ref_l.pop(".box", None) is None
     assert set(ref_l) == set(port_l), set(ref_l) ^ set(port_l)
     for key, rv in ref_l.items():
         pv = port_l[key]
