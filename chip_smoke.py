@@ -15,10 +15,12 @@ levels; text tower width 256, 12 layers, context 120, vocab 49,408), all
 on the bench batch (5 synthetic scenes of 150,000 points with their
 descriptions, ``max_points`` 786,432, in place of the configs' 6 or 8
 scenes in 4,194,304 or 2,097,152) with seeded random weights,
-drives the experimental brick engine at the bench level 0, and drives
+drives the experimental brick engine at the bench level 0, drives
 the weak-supervision loop through the port's entry points (``Trainer``,
 the pseudo-label stage, ``FullySupervised`` and the train CLI) at
-SparseConvFCNet's width, and checks them:
+SparseConvFCNet's width, trains the 4-chip config data-parallel on 4
+ranks that share the card, and runs the bench UNet without host plans
+(on-device voxelization and rulebooks), and checks them:
 
 1. device: the card's name and power limit, torch and CUDA versions;
 2. build: the kernels' four shared libraries (nvcc: forward K1/K4,
@@ -130,9 +132,40 @@ SparseConvFCNet's width, and checks them:
     launched on the tensor-core body; last, ``python -m tdwss_torch.cli.train
     --config configs/smoke_cpu.yaml --epochs 1`` runs on the card as a
     subprocess and must print its mIoU;
-13. one JSON line with the numbers of every ported kernel (K1-K7, each
-    with its launches over the main paths, the loop and the brick path,
-    0 included), the card line from ``nvidia-smi``, and the result line.
+13. data parallel: ``configs/3DUNetWithText_scannet_subcloud_uppool_4chip.yaml``
+    (SparseConvFCNetDirectUpPool, m=16, planes 16..256, bf16, global
+    batch 32 = 8 subclouds per rank, ``label: subcloud`` through
+    ``expand_subclouds`` on 5 synthetic scenes of 150,000 points; 1
+    validation rep in place of 3) on 4 gloo ranks started with
+    ``torch.multiprocessing`` (spawn), all on this one card (NCCL refuses
+    two ranks on one card; its path over several cards is not run here):
+    the first of 4 batches planned here through one step with every
+    windowed backward and unpool re-run through the plain versions and
+    the loss parts held against them in bf16 and f32 (K1/K2/K3/K6 at this
+    path's shapes); one DP step from the 4 batches against its one-process
+    emulation on the card in f32 and bf16, the ranks bit for bit; a
+    planted fault (one rank keeps its own running statistics) that both
+    checks must catch; a ``Trainer`` fit of one epoch (2 global steps and
+    the rank-0 validation) with the launch counts set to 0 just before and
+    read just after on every rank, K1 and K2 launched on the tensor-core
+    body, the ranks' parameters and buffers bit for bit (broadcast, max
+    |d|), one checkpoint, and a resume on every rank bit for bit; device
+    seconds per step per rank (CUDA events), wall seconds per global step,
+    peak memory per rank;
+14. plans-free: the bench UNet with ``engine.host_plans: false`` (the
+    points voxelized and every level's rulebooks built on the card, the
+    convs on the rulebook routes): with the launch counts set to 0 just
+    before and read just after (K1-K7 must stay 0), ``validate`` (1 rep),
+    the logits of the rep-1 batch, 2 training steps and a warm step with
+    no synchronising call; the logits against the host-planned path on
+    the same points (bf16 2^-7, f32 1e-4 of max|host|) and the first
+    step's loss (LOSS_RTOL); host seconds per batch (collate alone
+    against collate + plans + slim), device seconds per step of both
+    paths, peak memory;
+15. one JSON line with the numbers of every ported kernel (K1-K7, each
+    with its launches over the main paths, the loop, the brick path and
+    the DP and plans-free paths, 0 included), the card line from
+    ``nvidia-smi``, and the result line.
 
 Any failure raises and the exit code is not 0.  Without CUDA, or without
 the rest of the repository beside this file, it exits non-zero and prints
@@ -2460,6 +2493,598 @@ def phase_loop(val_scenes, device):
     return launches, fs_launches, text_launches
 
 
+# ---------------------------------------------------------------------------
+# Data parallel: the 4-chip config's Trainer on DP_WORLD gloo ranks that
+# share one card
+# ---------------------------------------------------------------------------
+
+DP_CONFIG = "3DUNetWithText_scannet_subcloud_uppool_4chip.yaml"
+DP_WORLD = 4
+DP_SCENES = 5                  # whole scenes cut into the train subclouds
+DP_TIMEOUT_S = 600             # the ranks' joint deadline
+# One DP step against its one-process emulation (the same 4 batches
+# forward and backward in turn, gradients and running statistics
+# averaged, one Adam step): the reference test's limits in f32
+# (tests/test_parallel.py:51-71).  Both sides run the same kernels on the
+# same batches, so the per-batch gradients agree bit for bit, and both
+# average in f64, so the order of the sums does not matter.  With f32
+# sums (gloo's order against a sum in turn) the f32 step measured max|d|
+# 3.88e-6 at lr 0.004, beyond atol 1e-6: Adam's first update is
+# lr * g / (|g| + eps), and a gradient that nearly cancels over the ranks
+# keeps only its rounding.  In bf16 the same step measured max|d| 0 on
+# an H100 80GB HBM3 (700 W; PERF.md section 6), so it is held to the
+# same limits.
+DP_TOL_F32 = dict(rtol=1e-4, atol=1e-6)
+DP_TOL_BF16 = dict(rtol=1e-4, atol=1e-6)
+
+
+def dp_config():
+    """``configs/3DUNetWithText_scannet_subcloud_uppool_4chip.yaml`` as it
+    is, with one validation repetition in place of 3 (the rank-0
+    validation of the fit's epoch)."""
+    from tdwss_torch.config import load_config
+
+    cfg = load_config(os.path.join(HERE, "configs", DP_CONFIG))
+    cfg.pointcloud_data.val_reps = 1
+    return cfg
+
+
+def _excess(got, want, tol):
+    """max over elements of |got - want| - (atol + rtol |want|): <= 0
+    within ``tol`` (numpy's allclose); and max |got - want|."""
+    import torch
+
+    d = (got.double() - want.double()).abs()
+    lim = tol["atol"] + tol["rtol"] * want.double().abs()
+    return (d - lim).max().item(), d.max().item()
+
+
+def _state_excess(got, want, tol):
+    """(max excess, max |d|, name of the worst) over a state dict's
+    floating-point tensors (parameters and running statistics)."""
+    worst_ex, worst_d, worst_name = -math.inf, 0.0, ""
+    for name, w in want.items():
+        if w.is_floating_point():
+            ex, dmax = _excess(got[name], w, tol)
+            worst_d = max(worst_d, dmax)
+            if ex > worst_ex:
+                worst_ex, worst_name = ex, name
+    return worst_ex, worst_d, worst_name
+
+
+def _replica_max_diff(tensors):
+    """max |t - rank 0's t| over ``tensors`` on this rank (rank 0's copy
+    broadcast), reduced to the largest over the ranks."""
+    import torch
+    import torch.distributed as dist
+
+    worst = torch.zeros((), dtype=torch.float64,
+                        device=tensors[0].device)
+    for t in tensors:
+        ref = t.detach().clone()
+        dist.broadcast(ref, src=0)
+        worst = torch.maximum(
+            worst, (t.detach().double() - ref.double()).abs().max())
+    dist.all_reduce(worst, op=dist.ReduceOp.MAX)
+    return worst.item()
+
+
+def _dp_rank(rank, world, work, cfg, spe, device):
+    """One rank of the DP phase (started by ``phase_dp``): the step
+    parity in f32 and bf16 and the planted fault on the parent's shared
+    batches, then a ``Trainer`` fit of one epoch and its resume; writes
+    ``rank<r>.pt``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from tdwss_torch.engine import train as train_mod
+    from tdwss_torch.engine.steps import make_optimizer, train_step
+    from tdwss_torch.models.meta_arch import build_model
+    from tdwss_torch.ops import windowed as W
+    from tdwss_torch.parallel import dp
+
+    torch.set_num_threads(2)
+    device = torch.device(device)
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.set_device(device)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(os.path.join(work, "store"), world),
+        rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=DP_TIMEOUT_S))
+    out = {}
+    try:
+        local = train_mod.local_config(cfg, world)
+        batch = torch.load(os.path.join(work, f"batch{rank}.pt"),
+                           weights_only=False).to(device)
+
+        def one_step(dtype, fault=False):
+            c = copy.deepcopy(local)
+            c.engine.compute_dtype = dtype
+            model = build_model(c, seed=0, device=device)
+            opt, sched = make_optimizer(c, model, spe)
+            dp.broadcast_state(model)
+            real = dp.average_batch_stats
+            if fault and rank == 1:
+                # the planted fault: this rank joins the all-reduce of the
+                # running statistics but keeps its own
+                def keep_own(m, group=None):
+                    mine = [b.clone() for b in dp.batch_stat_buffers(m)]
+                    real(m, group)
+                    for b, v in zip(dp.batch_stat_buffers(m), mine):
+                        b.copy_(v)
+                dp.average_batch_stats = keep_own
+            try:
+                loss, _ = train_step(c, model, opt, sched, batch,
+                                     group=dist.group.WORLD)
+            finally:
+                dp.average_batch_stats = real
+            loss = dp.average_scalars({"loss": loss})["loss"]
+            state = {k: v.detach().cpu().clone()
+                     for k, v in model.state_dict().items()}
+            rep = _replica_max_diff(list(model.state_dict().values()))
+            return dict(loss=float(loss), state=state, replica_diff=rep)
+
+        out["float32"] = one_step("float32")
+        out["bfloat16"] = one_step("bfloat16")
+        out["fault"] = one_step("bfloat16", fault=True)
+        del batch
+
+        # the fit: one epoch through the Trainer, the counts set to 0 just
+        # before and read just after
+        fit_dir = os.path.join(work, "fit")
+        os.makedirs(fit_dir, exist_ok=True)
+        os.chdir(fit_dir)
+        scenes = torch.load(os.path.join(work, "scenes.pt"),
+                            weights_only=False)
+        events, starts = [], []
+        real_step = train_mod.train_step
+
+        def timed_step(*a, **kw):
+            starts.append(time.perf_counter())
+            if not cuda:
+                return real_step(*a, **kw)
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            res = real_step(*a, **kw)
+            ev[1].record()
+            events.append(ev)
+            return res
+
+        t = time.perf_counter()
+        trainer = train_mod.Trainer(cfg, scenes["train"], scenes["val"],
+                                    device=device, verbose=False)
+        out["build_s"] = time.perf_counter() - t
+        out["warmed_epochs"] = trainer.warmed_epochs
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        W.reset_launches()
+        train_mod.train_step = timed_step
+        try:
+            t = time.perf_counter()
+            out["history"] = trainer.fit(epochs=1)
+            if cuda:
+                torch.cuda.synchronize()
+            out["fit_s"] = time.perf_counter() - t
+        finally:
+            train_mod.train_step = real_step
+        out["launches"] = dict(W.launches)
+        out["bodies"] = dict(W.body_launches)
+        out["steps"] = len(starts)
+        out["step_starts"] = [s - starts[0] for s in starts]
+        out["device_s"] = [a.elapsed_time(b) / 1e3 for a, b in events]
+        out["peak_gib"] = (torch.cuda.max_memory_allocated() / 2**30
+                           if cuda else 0.0)
+        out["replica_diff"] = _replica_max_diff(
+            list(trainer.model.state_dict().values()))
+        out["checkpoints"] = sorted(os.listdir(os.path.join(
+            "exp", cfg.training_name, "checkpoints_torch")))
+        first = trainer.state_dict()
+        warm = copy.deepcopy(cfg)
+        warm.engine.prewarm_shapes = False    # this process is warm already
+        resumed = train_mod.Trainer(warm, scenes["train"], scenes["val"],
+                                    device=device, verbose=False)
+        out["resume_epoch"] = resumed.start_epoch
+        out["resume_equal"] = _state_equal(first, resumed.state_dict())
+        torch.save(out, os.path.join(work, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _dp_emulation(cfg, batches, spe, dtype, device):
+    """One DP step emulated in one process: the batches forward and
+    backward in turn from the same state, their gradients and updated
+    running statistics averaged (summed in turn in f64, the mean rounded
+    to f32, as ``tdwss_torch.parallel.dp`` averages), one Adam step.
+    Returns (mean loss, state dict on the host)."""
+    import torch
+
+    from tdwss_torch.engine.steps import compute_loss, make_optimizer
+    from tdwss_torch.models.meta_arch import build_model
+    from tdwss_torch.parallel import dp
+
+    c = copy.deepcopy(cfg)
+    c.engine.compute_dtype = dtype
+    model = build_model(c, seed=0, device=device)
+    opt, sched = make_optimizer(c, model, spe)
+    params = dp.trainable(model)
+    bufs = dp.batch_stat_buffers(model)
+    start = [b.clone() for b in bufs]
+    g_sum = [torch.zeros_like(p, dtype=torch.float64) for p in params]
+    s_sum = [torch.zeros_like(b, dtype=torch.float64) for b in bufs]
+    l_sum = 0.0
+    model.train()
+    for batch in batches:
+        with torch.no_grad():
+            for b, v in zip(bufs, start):
+                b.copy_(v)
+        model.zero_grad(set_to_none=True)
+        loss, _ = compute_loss(c, model, batch.to(device))
+        loss.backward()
+        l_sum += float(loss.detach())
+        for g, p in zip(g_sum, params):
+            if p.grad is not None:
+                g += p.grad
+        for s, b in zip(s_sum, bufs):
+            s += b
+    n = len(batches)
+    l_mean = float(torch.tensor(l_sum / n, dtype=torch.float32))
+    with torch.no_grad():
+        for p, g in zip(params, g_sum):
+            p.grad = (g / n).float()
+        for b, s in zip(bufs, s_sum):
+            b.copy_((s / n).float())
+    opt.step()
+    sched.step()
+    return l_mean, {k: v.detach().cpu().clone()
+                       for k, v in model.state_dict().items()}
+
+
+def phase_dp(device):
+    """The 4-chip config (SparseConvFCNetDirectUpPool, m=16, global batch
+    32 = 8 per rank, ``label: subcloud``) trained data-parallel on
+    DP_WORLD gloo ranks started with ``torch.multiprocessing`` (spawn),
+    all pinned to ``device`` (one card: NCCL refuses two ranks on one
+    card; the NCCL path over several cards is not run here), rendezvous
+    through a FileStore in a temporary directory.
+
+    1. Four batches planned once here (elastic noise is unseeded, so the
+       ranks load them).  The first goes through ``phase_train`` (one
+       step; every windowed backward and unpool re-run through the plain
+       versions, dfeats within KERNEL_TOL / KERNEL_TOL_F32 and dW within
+       DW_TOL, the loss parts in bf16 and f32 against the plain
+       versions), so K1/K2/K3/K6 are held at this path's shapes.  Then
+       one DP step on the ranks against its one-process
+       emulation on the card, in f32 (DP_TOL_F32) and bf16 (DP_TOL_BF16),
+       the ranks bit for bit; the same bf16 step with a planted fault (rank
+       1 keeps its own running statistics) must fail both checks.
+    2. A ``Trainer`` on every rank fits one epoch (2 global steps and the
+       rank-0 validation), the launch counts set to 0 just before and read
+       just after: every rank's parameters and buffers bit for bit equal
+       to rank 0's (broadcast, max |d|), K1 and K2 launched on every rank
+       on the tensor-core body, exactly one checkpoint, and a resume on
+       every rank restores it bit for bit; wall seconds per global step,
+       each rank's device seconds per step (CUDA events) and peak memory.
+
+    Returns the launches summed over the ranks' fits."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+
+    from tdwss_torch.data.dataset import expand_subclouds
+    from tdwss_torch.data.loader import steps_per_epoch, train_batches
+    from tdwss_torch.data.synthetic import make_dataset
+    from tdwss_torch.engine import train as train_mod
+    from tdwss_torch.models.sparse_encoders import plane_schedule
+    from tdwss_torch.ops import windowed as W
+    from tdwss_torch.ops.host_plan import reset_sticky_plans
+
+    cfg = dp_config()
+    if cfg.mesh.data != DP_WORLD:
+        raise AssertionError(f"{DP_CONFIG}: mesh.data {cfg.mesh.data}")
+    t = time.perf_counter()
+    whole = make_dataset(DP_SCENES, num_points=POINTS_PER_SCENE, seed=13,
+                         with_text=False)
+    train = expand_subclouds(whole, in_radius=cfg.in_radius)
+    val = make_dataset(2, num_points=POINTS_PER_SCENE, seed=17,
+                       with_text=False)
+    spe = steps_per_epoch(len(train), cfg.pointcloud_data.batch_size)
+    local = train_mod.local_config(cfg, DP_WORLD)
+    log(f"DP: {DP_CONFIG}: {cfg.pointcloud_model.name} m="
+        f"{cfg.pointcloud_model.m}, planes "
+        f"{plane_schedule(cfg.pointcloud_model)}, "
+        f"{cfg.engine.compute_dtype}, global batch "
+        f"{cfg.pointcloud_data.batch_size} = {DP_WORLD} ranks x "
+        f"{local.pointcloud_data.batch_size}, max_points "
+        f"{cfg.engine.max_points}, lr {cfg.lr}; {len(train)} subclouds "
+        f"(radius {cfg.in_radius}) of {DP_SCENES} scenes x "
+        f"{POINTS_PER_SCENE} points, {int(np.mean([s.points.shape[0] for s in train]))} "
+        f"points each on average, {spe} global steps per epoch; 2 val "
+        f"scenes; in {time.perf_counter() - t:.2f} s")
+    if spe < 2:
+        raise AssertionError("DP: fewer than 2 global steps per epoch")
+    work = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    try:
+        reset_sticky_plans()
+        t = time.perf_counter()
+        batches = []
+        for b in train_batches(train, local, 1, prefetch=False):
+            batches.append(b)
+            if len(batches) == DP_WORLD:
+                break
+        plan_s = time.perf_counter() - t
+        log(f"DP: {DP_WORLD} batches of {local.pointcloud_data.batch_size} "
+            f"subclouds planned on the host in {plan_s:.2f} s")
+        for r, b in enumerate(batches):
+            torch.save(b, os.path.join(work, f"batch{r}.pt"))
+        torch.save({"train": train, "val": val},
+                   os.path.join(work, "scenes.pt"))
+        emu = {}
+        for dtype in ("float32", "bfloat16"):
+            t = time.perf_counter()
+            emu[dtype] = _dp_emulation(local, batches, spe, dtype, device)
+            torch.cuda.synchronize()
+            log(f"DP: one-process emulation of one {dtype} step "
+                f"({DP_WORLD} batches in turn, averaged): loss "
+                f"{emu[dtype][0]:.6f} in {time.perf_counter() - t:.2f} s")
+        # K1/K2/K3/K6 at this path's own shapes, which neither the sweeps
+        # nor the earlier paths see: rank 0's batch through the kernels
+        # against the plain versions, layer by layer and the loss parts
+        # in bf16 and f32 (the launches of this check count nowhere)
+        phase_train("DP: rank 0's batch", local, batches[0], batches[0],
+                    plan_s / DP_WORLD, device, 1, full_checks=False,
+                    f32_loss=True)
+        del batches
+        torch.cuda.empty_cache()
+
+        t = time.perf_counter()
+        ctx = mp.start_processes(_dp_rank, args=(DP_WORLD, work, cfg, spe,
+                                                   str(device)),
+                                 nprocs=DP_WORLD, join=False,
+                                 start_method="spawn")
+        deadline = time.monotonic() + DP_TIMEOUT_S
+        try:
+            while not ctx.join(timeout=5):
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"DP: the ranks did not finish in "
+                                         f"{DP_TIMEOUT_S} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+        log(f"DP: {DP_WORLD} ranks ran in {time.perf_counter() - t:.2f} s "
+            f"(start, step parity, fault, fit, resume)")
+        ranks = [torch.load(os.path.join(work, f"rank{r}.pt"),
+                            weights_only=False) for r in range(DP_WORLD)]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    failures = []
+    for dtype, tol in (("float32", DP_TOL_F32), ("bfloat16", DP_TOL_BF16)):
+        want_loss, want = emu[dtype]
+        ex_l, d_l = _excess(torch.tensor(ranks[0][dtype]["loss"]),
+                            torch.tensor(want_loss), tol)
+        ex, dmax, worst = _state_excess(ranks[0][dtype]["state"], want, tol)
+        rep = max(r[dtype]["replica_diff"] for r in ranks)
+        log(f"DP: one {dtype} step on {DP_WORLD} ranks vs the one-process "
+            f"emulation: loss {ranks[0][dtype]['loss']:.8f} vs "
+            f"{want_loss:.8f} (|d| {d_l:.3g}); parameters and running "
+            f"statistics max|d| {dmax:.3g}, worst excess over rtol "
+            f"{tol['rtol']:g} atol {tol['atol']:g}: {ex:.3g} ({worst}); "
+            f"ranks vs rank 0 max|d| {rep:.3g}")
+        if ex_l > 0 or ex > 0 or rep != 0:
+            failures.append(f"{dtype} step")
+    f_ex, f_dmax, f_worst = _state_excess(ranks[1]["fault"]["state"],
+                                          emu["bfloat16"][1], DP_TOL_BF16)
+    f_rep = max(r["fault"]["replica_diff"] for r in ranks)
+    caught = f_ex > 0 and f_rep > 0
+    log(f"DP: planted fault (rank 1 keeps its own running statistics in one "
+        f"bf16 step): rank 1 vs the emulation max|d| {f_dmax:.3g}, excess "
+        f"{f_ex:.3g} ({f_worst}); ranks vs rank 0 max|d| {f_rep:.3g}; "
+        f"caught: {caught}")
+    if not caught:
+        failures.append("the planted fault was not caught")
+
+    for r, res in enumerate(ranks):
+        dev_s = res["device_s"]
+        starts = res["step_starts"]
+        wall = ([b - a for a, b in zip(starts, starts[1:])]
+                if len(starts) > 1 else [])
+        log(f"DP: rank {r}: Trainer built in {res['build_s']:.2f} s (plan "
+            f"shapes warmed over epochs {res['warmed_epochs']}), fit(epochs"
+            f"=1) {res['fit_s']:.2f} s, {res['steps']} steps, mean loss "
+            f"{res['history'][0]:.6f}; device s per step (CUDA events) "
+            f"{', '.join(f'{x:.3f}' for x in dev_s)}; wall s between step "
+            f"starts {', '.join(f'{x:.3f}' for x in wall)}; peak device "
+            f"memory {res['peak_gib']:.2f} GiB; launches {res['launches']}")
+        bodies = res["bodies"]
+        ok_bodies = all(not bodies[f"{k}:{W.BODY_FMA}"]
+                        and bodies[f"{k}:{W.BODY_MMA}"] == res["launches"][k]
+                        for k in (W.K1, W.K4, W.K2, W.K3, W.K5, W.K6))
+        if not (res["launches"][W.K1] and res["launches"][W.K2]
+                and ok_bodies):
+            failures.append(f"rank {r}: K1/K2 not launched on the "
+                            f"tensor-core body: {bodies}")
+        if res["steps"] != spe or not math.isfinite(res["history"][0]):
+            failures.append(f"rank {r}: {res['steps']} steps, loss "
+                            f"{res['history']}")
+        if res["replica_diff"] != 0:
+            failures.append(f"rank {r}: state differs from rank 0's by "
+                            f"{res['replica_diff']}")
+        if res["resume_epoch"] != 2 or not res["resume_equal"]:
+            failures.append(f"rank {r}: the resume differs")
+    log(f"DP: after the fit, every rank's parameters and buffers vs rank "
+        f"0's max|d| {max(r['replica_diff'] for r in ranks):.3g}; rank 0 "
+        f"wrote {ranks[0]['checkpoints']}; resumed at epoch "
+        f"{[r['resume_epoch'] for r in ranks]}, bit-identical "
+        f"{[r['resume_equal'] for r in ranks]}; wall s per global step "
+        f"(fit incl. the rank-0 validation / steps) "
+        f"{ranks[0]['fit_s'] / max(ranks[0]['steps'], 1):.3f}; the NCCL "
+        f"path over several cards is not run here")
+    if ranks[0]["checkpoints"] != ["epoch_1.pt"]:
+        failures.append(f"rank 0 wrote {ranks[0]['checkpoints']}")
+    if failures:
+        raise AssertionError("DP: " + "; ".join(failures))
+    return {k: sum(r["launches"][k] for r in ranks)
+            for k in ranks[0]["launches"]}
+
+
+# ---------------------------------------------------------------------------
+# The plans-free branch: the bench UNet with engine.host_plans false
+# ---------------------------------------------------------------------------
+
+PF_LOGITS_TOL = {"bfloat16": 2.0 ** -7, "float32": 1e-4}
+PF_STEPS = 2
+
+
+def phase_plans_free(scenes, device):
+    """The bench UNet (m=32, 7 levels, bf16) with ``engine.host_plans:
+    false`` on the bench batch: the points voxelized and every level's
+    rulebooks built on the card, the convs on the rulebook routes.  With
+    the launch counts set to 0 just before and read just after (all must
+    stay 0): ``validate`` (1 rep), the per-point logits of the rep-1 batch
+    in bf16 and f32, PF_STEPS training steps (device seconds, peak
+    memory) and a warm step under sync debug mode (no synchronising
+    call).  Then the same points through the host-planned path: logits
+    within PF_LOGITS_TOL of max|host| and the first step's loss within
+    LOSS_RTOL; host seconds per batch (collate alone against collate +
+    plans + slim) and device seconds per step beside it.  Returns the
+    launches."""
+    import numpy as np
+    import torch
+
+    from tdwss_torch.data.collate import train_collate
+    from tdwss_torch.data.dataset import val_offsets
+    from tdwss_torch.data.loader import val_batches
+    from tdwss_torch.engine.evaluate import validate
+    from tdwss_torch.engine.steps import eval_step, make_optimizer, train_step
+    from tdwss_torch.models.meta_arch import build_model
+    from tdwss_torch.ops import windowed as W
+    from tdwss_torch.ops.experimental import block_gather as BG
+    from tdwss_torch.ops.host_plan import reset_sticky_plans
+
+    def f32(cfg):
+        cfg = copy.deepcopy(cfg)
+        cfg.engine.compute_dtype = "float32"
+        return cfg
+
+    host_cfg = bench_config()
+    host_cfg.pointcloud_data.val_reps = 1
+    free_cfg = copy.deepcopy(host_cfg)
+    free_cfg.engine.host_plans = False
+
+    t = time.perf_counter()
+    train_collate(scenes, free_cfg, np.random.default_rng(0))
+    collate_s = time.perf_counter() - t
+    planned, host, host_s = plan_train_batch(host_cfg, scenes,
+                                             "plans-free (host-planned twin)")
+    bare = dict(plans=None, vox_feats=None, point2voxel=None,
+                point_perm=None)
+    free_b = planned.replace(**bare).to(device)
+    reset_sticky_plans()
+    val_host = next(val_batches(scenes, host_cfg, val_offsets(scenes)[0], 1))
+    val_free = val_host.replace(**bare).to(device)
+    log(f"plans-free: host seconds per train batch: collate alone "
+        f"{collate_s:.3f} s, against collate + plans + slim {host_s:.3f} s "
+        f"on the host-planned path")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    W.reset_launches()
+    BG.reset_launches()
+    model = build_model(free_cfg, seed=0, device=device)
+    t = time.perf_counter()
+    ious = validate(free_cfg, model, scenes, reps=1, verbose=False,
+                    device=device)
+    log(f"plans-free: validate (1 rep, voxelize + rulebooks on the card): "
+        f"{time.perf_counter() - t:.2f} s, mIoU {ious[-1]:.6f}")
+    if len(ious) != 1 or not math.isfinite(ious[0]):
+        raise AssertionError(f"plans-free: bad mIoU {ious}")
+    logits = {"bfloat16": eval_step(model, val_free)}
+    m32 = build_model(f32(free_cfg), seed=0, device=device)
+    logits["float32"] = eval_step(m32, val_free)
+    del m32
+    tmodel = build_model(free_cfg, seed=0, device=device)
+    opt, sched = make_optimizer(free_cfg, tmodel, STEPS_PER_EPOCH)
+    free_loss, free_dev = [], []
+    for _ in range(PF_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss, _ = train_step(free_cfg, tmodel, opt, sched, free_b)
+        torch.cuda.synchronize()
+        free_dev.append(time.perf_counter() - t)
+        free_loss.append(float(loss))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    syncs = list_syncs(lambda: train_step(free_cfg, tmodel, opt, sched,
+                                          free_b))
+    launches = dict(W.launches)
+    launches.update(BG.launches)
+    del tmodel, opt, sched
+    log(f"plans-free: {PF_STEPS} train steps: losses "
+        f"{', '.join(f'{x:.6f}' for x in free_loss)}; device s per step "
+        f"(ended by a synchronise) {', '.join(f'{x:.3f}' for x in free_dev)}"
+        f"; peak device memory {peak:.2f} GiB; synchronising calls in a "
+        f"warm step: {len(syncs)} sites: {json.dumps(syncs)}; launches "
+        f"(K1-K7) {launches}")
+
+    failures = []
+    if any(launches.values()):
+        failures.append(f"a kernel was launched: {launches}")
+    if syncs:
+        failures.append("the warm plans-free step synchronises")
+    if not all(math.isfinite(x) for x in free_loss):
+        failures.append(f"non-finite loss {free_loss}")
+    hmodel = build_model(host_cfg, seed=0, device=device)
+    hb = val_host.to(device)
+    host_logits = {"bfloat16": eval_step(hmodel, hb)}
+    m32 = build_model(f32(host_cfg), seed=0, device=device)
+    host_logits["float32"] = eval_step(m32, hb)
+    del m32
+    valid = val_free.valid
+    for dtype, tol in PF_LOGITS_TOL.items():
+        a, b = logits[dtype][valid].float(), host_logits[dtype][valid].float()
+        d = (a - b).abs()
+        scale = b.abs().max().item()
+        log(f"plans-free vs host-planned logits ({dtype}, "
+            f"{int(valid.sum())} points): max|d| {d.max().item():.6g} "
+            f"(limit {tol:.3g} * max|host| {scale:.6g}), mean|d| "
+            f"{d.mean().item():.6g}, argmax agreement "
+            f"{(a.argmax(1) == b.argmax(1)).float().mean().item():.6f}")
+        if not torch.isfinite(a).all() or d.max().item() > tol * scale:
+            failures.append(f"{dtype} logits beyond {tol:.3g} * max|host|")
+    del hmodel, hb
+    hmodel = build_model(host_cfg, seed=0, device=device)
+    opt, sched = make_optimizer(host_cfg, hmodel, STEPS_PER_EPOCH)
+    hbatch = host.to(device)
+    host_loss, host_dev = [], []
+    for _ in range(PF_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss, _ = train_step(host_cfg, hmodel, opt, sched, hbatch)
+        torch.cuda.synchronize()
+        host_dev.append(time.perf_counter() - t)
+        host_loss.append(float(loss))
+    rel = abs(free_loss[0] - host_loss[0]) / abs(host_loss[0])
+    log(f"plans-free vs host-planned first-step loss (bf16): "
+        f"{free_loss[0]:.6f} vs {host_loss[0]:.6f}, relative {rel:.3g} "
+        f"(limit {LOSS_RTOL:g}); host-planned device s per step "
+        f"{', '.join(f'{x:.3f}' for x in host_dev)} beside the plans-free "
+        f"{', '.join(f'{x:.3f}' for x in free_dev)}")
+    if rel > LOSS_RTOL:
+        failures.append(f"first-step loss {rel} > {LOSS_RTOL}")
+    del hmodel, opt, sched, hbatch
+    if failures:
+        raise AssertionError("plans-free: " + "; ".join(failures))
+    return launches
+
+
 def main() -> int:
     import argparse
 
@@ -2579,6 +3204,8 @@ def main() -> int:
     rows.append(k7_row)
     (paths["loop"], paths["FullySupervised"],
      paths["loop, text Trainer"]) = phase_loop(scenes, device)
+    paths["DP"] = phase_dp(device)
+    paths["plans-free"] = phase_plans_free(scenes, device)
     # The kernels line lists every ported kernel with its launches summed
     # over the paths (0 for K4 and K5: no plan of any path is flat-form).
     for row in rows:

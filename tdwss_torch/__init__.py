@@ -19,7 +19,13 @@ over the prefetching train loader, the pseudo-label stage
 (``python -m tdwss_torch.cli.<name>``); and the text branch:
 ``MultiLabelContrastive`` with its text tower
 (:mod:`tdwss_torch.models.transformer`), the ``TextContrastive`` loss and
-the tokenizer (:mod:`tdwss_torch.data.tokenizer`).
+the tokenizer (:mod:`tdwss_torch.data.tokenizer`); data-parallel
+training over ``torch.distributed`` (:mod:`tdwss_torch.parallel`:
+``mesh.data > 1`` under ``torchrun``); and the on-device planner of the
+plans-free branch (``engine.host_plans: false``): voxelization
+(:func:`tdwss_torch.ops.voxelize.voxelize`), coordinate keys and sorted
+lookup (:mod:`tdwss_torch.ops.coords`) and every level's rulebooks
+(:func:`tdwss_torch.ops.plan.build_plans`) built on the device.
 """
 
 __version__ = "0.1.0"

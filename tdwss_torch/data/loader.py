@@ -20,7 +20,7 @@ from __future__ import annotations
 import os
 import queue
 import threading
-from typing import Iterator, List, Optional, Sequence
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -133,20 +133,38 @@ def _parallel_map_ordered(fn, items, num_workers: int, depth: int = 4):
                 pending.append(pool.submit(fn, nxt))
 
 
+def shard_starts(starts: Sequence[int], shard: Tuple[int, int]
+                 ) -> List[int]:
+    """The batch starts of rank ``r`` of ``world`` (``shard``): each
+    group of ``world`` consecutive batches is one data-parallel step,
+    rank ``r`` takes the ``r``-th of each, and an incomplete last group
+    is dropped (the reference's ``dp_train_batches``,
+    tdwss/parallel/dp.py:295-305)."""
+    r, world = shard
+    return [starts[k * world + r] for k in range(len(starts) // world)]
+
+
 def train_batches(scenes: Sequence[Scene], cfg: Config, epoch: int,
                   stats: Optional[CollateStats] = None,
                   prefetch: bool = True,
-                  to_device=None) -> Iterator[PointBatch]:
+                  to_device=None,
+                  shard: Optional[Tuple[int, int]] = None
+                  ) -> Iterator[PointBatch]:
     """Shuffled, drop_last batches of ``cfg.pointcloud_data.batch_size``
     scenes: the epoch's order from ``SeedSequence([seed, epoch])``, each
     batch's augmentation from ``SeedSequence([seed, epoch, start])``;
     host plans attached and the batch slimmed for training (as the
     engine config asks).  With ``prefetch``, ``to_device`` also copies
-    each batch to that device ahead of use (see :func:`_prefetch`)."""
+    each batch to that device ahead of use (see :func:`_prefetch`).
+    ``shard=(rank, world)`` gives only that rank's batches of each
+    data-parallel step (:func:`shard_starts`; ``cfg`` then holds the
+    per-rank batch size), and plans no other."""
     rng = np.random.default_rng(np.random.SeedSequence([cfg.seed, epoch]))
     order = rng.permutation(len(scenes))
     bs = cfg.pointcloud_data.batch_size
     starts = list(range(0, len(order) - bs + 1, bs))
+    if shard is not None:
+        starts = shard_starts(starts, shard)
 
     def make(start):
         sel = [scenes[i] for i in order[start: start + bs]]
@@ -164,7 +182,8 @@ def train_batches(scenes: Sequence[Scene], cfg: Config, epoch: int,
 
 
 def warm_plan_shapes(scenes: Sequence[Scene], cfg: Config,
-                     epochs=(1,)) -> List[int]:
+                     epochs=(1,),
+                     shard: Optional[Tuple[int, int]] = None) -> List[int]:
     """Converge the sticky plan-shape registry before training.
 
     Window sizes and spill capacities ratchet up across batches
@@ -182,12 +201,14 @@ def warm_plan_shapes(scenes: Sequence[Scene], cfg: Config,
 
     planned = list(epochs)
     for e in epochs:
-        for _ in train_batches(scenes, cfg, epoch=e, prefetch=False):
+        for _ in train_batches(scenes, cfg, epoch=e, prefetch=False,
+                               shard=shard):
             pass
     last = max(epochs, default=0)
     for e in range(last + 1, last + 9):
         before = dict(_ECAP_REGISTRY)
-        for _ in train_batches(scenes, cfg, epoch=e, prefetch=False):
+        for _ in train_batches(scenes, cfg, epoch=e, prefetch=False,
+                               shard=shard):
             pass
         planned.append(e)
         if _ECAP_REGISTRY == before:

@@ -17,6 +17,7 @@ import torch
 
 from tdwss_torch.config import Config
 from tdwss_torch.data.batch import PointBatch
+from tdwss_torch.parallel import dp
 from tdwss_torch.utils.losses import Classification, TextContrastive
 
 
@@ -79,10 +80,21 @@ def compute_loss(cfg: Config, model, batch: PointBatch
     return loss, aux
 
 
-def train_step(cfg: Config, model, optimizer, scheduler, batch: PointBatch
-               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+def train_step(cfg: Config, model, optimizer, scheduler, batch: PointBatch,
+               group=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One optimisation step on the batch's device: forward (batch-norm
     running statistics updated), backward, Adam update, schedule step.
+
+    With a ``torch.distributed`` ``group``, one data-parallel step on this
+    rank's batch (the reference's ``make_train_step(pmean_axis=...)``):
+    forward and backward stay local, then the gradients and the running
+    statistics are averaged over the group's ranks
+    (:mod:`tdwss_torch.parallel.dp`) before Adam.  The aux scalars stay
+    this rank's own; :func:`tdwss_torch.parallel.dp.average_scalars`
+    averages them where a caller needs the mean.  The all-reduces wait
+    for the other ranks (gloo also copies through the host), so what
+    follows on host synchronisation holds for one process.
+
     Returns the loss and aux scalars as detached tensors, with no host
     synchronisation: on a card the call returns once the step is issued,
     not when it is done (``chip_smoke.py`` runs a warm step of the bench
@@ -94,6 +106,9 @@ def train_step(cfg: Config, model, optimizer, scheduler, batch: PointBatch
     optimizer.zero_grad(set_to_none=True)
     loss, aux = compute_loss(cfg, model, batch)
     loss.backward()
+    if group is not None:
+        dp.average_gradients(model, group)
+        dp.average_batch_stats(model, group)
     optimizer.step()
     scheduler.step()
     return loss.detach(), {k: v.detach() for k, v in aux.items()}

@@ -55,7 +55,8 @@ def build_encoder(pc_config: PointcloudModelConfig,
             f"cross-level maps; the windowed kernels take at most {KMAX} "
             f"taps (KMAX in tdwss_torch/csrc/windowed_common.cuh)")
     engine = engine or EngineConfig()
-    enc = build_sparse_encoder(pc_config, engine.compute_dtype, generator)
+    enc = build_sparse_encoder(pc_config, engine.compute_dtype, generator,
+                               engine)
     return enc, enc.out_width
 
 

@@ -21,8 +21,12 @@ Module and parameter names follow the flax modules' paths
 flax variables onto this tree one to one.  With ``istrain`` the encoder
 returns per-scene features: the count-weighted mean over voxels (the
 reference model's mean over points,
-``tdwss/models/sparse_encoders.py:270-283``).  The plans-free branch
-(on-device voxelization) is a later slice.
+``tdwss/models/sparse_encoders.py:270-283``).  Without host plans (the
+plans-free branch, ``engine.host_plans: false``) the encoder voxelizes
+the points and builds every level's rulebooks on the device
+(:func:`tdwss_torch.ops.voxelize.voxelize`,
+:func:`tdwss_torch.ops.plan.build_plans`), and its convs run the
+rulebook routes.
 """
 
 from __future__ import annotations
@@ -32,13 +36,14 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from tdwss_torch.config import EngineConfig
 from tdwss_torch.models.layers import (BatchNormReLU, Deconv,
                                        NetworkInNetwork, StridedConv,
                                        SubmConv)
-from tdwss_torch.ops.plan import LevelPlans, level_capacities
+from tdwss_torch.ops.plan import LevelPlans, build_plans, level_capacities
 from tdwss_torch.ops.segment import segment_mean_weighted
 from tdwss_torch.ops.sparse_conv import unpool, wg_unpool_apply
-from tdwss_torch.ops.voxelize import devoxelize, devoxelize_seg
+from tdwss_torch.ops.voxelize import devoxelize, devoxelize_seg, voxelize
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -268,14 +273,21 @@ def plan_spec(pc_config, engine, n_points: int):
 class SparseEncoder(nn.Module):
     """The scn pipeline around a body: stem SubmConv(in -> m), the body
     over one level per plane, BatchNormReLU, readback (the reference's
-    ``_SparseEncoderBase``, tdwss/models/sparse_encoders.py:196-297)."""
+    ``_SparseEncoderBase``, tdwss/models/sparse_encoders.py:196-297).
+
+    ``pc_config`` and ``engine`` (the encoder's and the engine's
+    configs) give the plans-free branch its capacities
+    (:func:`plan_spec`); without them the encoder runs on host plans
+    only."""
 
     def __init__(self, body_cls, planes: Sequence[int], out_width: int,
                  block_reps: int = 1, residual_blocks: bool = False,
                  downsample: Sequence[int] = (2, 2),
                  compute_dtype: str = "float32", in_channels: int = 3,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 pc_config=None, engine=None):
         super().__init__()
+        self.pc_config, self.engine = pc_config, engine
         if downsample[0] != downsample[1]:
             raise NotImplementedError("filter != stride is not supported")
         self.m = planes[0]
@@ -290,13 +302,22 @@ class SparseEncoder(nn.Module):
     def forward(self, coords, feats, valid, istrain: bool = False,
                 train: bool = False, num_scenes: int = 1, plans=None,
                 vox_feats=None, point2voxel=None, point_perm=None):
-        """Host plans + voxel features -> per-point features (f32,
-        (N, out_width)), or per-scene features (f32, (num_scenes,
-        out_width)) with ``istrain``."""
+        """Points (and host plans with their voxel features, or none) ->
+        per-point features (f32, (N, out_width)), or per-scene features
+        (f32, (num_scenes, out_width)) with ``istrain``."""
         if plans is None:
-            raise NotImplementedError(
-                "the plans-free branch (on-device voxelization) is not "
-                "ported; attach host plans (tdwss_torch.data.plans)")
+            # InputLayer(mode=4): average the points into voxels, then
+            # every level's rulebooks, on the points' device
+            if self.pc_config is None:
+                raise ValueError("no plans given, and the encoder has no "
+                                 "configs to plan on the device: build it "
+                                 "with build_sparse_encoder")
+            num_levels, caps, downsample = plan_spec(
+                self.pc_config, self.engine or EngineConfig(),
+                coords.shape[0])
+            grid, vox_feats, point2voxel = voxelize(coords, feats, valid,
+                                                    caps[0], mode="mean")
+            plans = build_plans(grid, num_levels, caps, downsample, 3)
         lvl0 = plans.levels[0]
         h = self.stem(vox_feats.to(self.compute_dtype), lvl0.subm_rb,
                       lvl0.win)
@@ -314,14 +335,17 @@ class SparseEncoder(nn.Module):
 
 
 def build_sparse_encoder(pc_config, compute_dtype: str = "float32",
-                         generator: Optional[torch.Generator] = None
-                         ) -> SparseEncoder:
+                         generator: Optional[torch.Generator] = None,
+                         engine=None) -> SparseEncoder:
     """The encoder ``pc_config.name`` with its plane schedule, the
-    config's ``block_reps``, ``residual_blocks`` and ``downsample``."""
+    config's ``block_reps``, ``residual_blocks`` and ``downsample``, and
+    the capacities of ``engine`` (an ``EngineConfig``; its defaults when
+    None) for the plans-free branch."""
     body_cls = _encoder_entry(pc_config.name)[0]
     return SparseEncoder(body_cls, plane_schedule(pc_config),
                          output_width(pc_config),
                          block_reps=pc_config.block_reps,
                          residual_blocks=pc_config.residual_blocks,
                          downsample=tuple(pc_config.downsample),
-                         compute_dtype=compute_dtype, generator=generator)
+                         compute_dtype=compute_dtype, generator=generator,
+                         pc_config=pc_config, engine=engine)

@@ -1,4 +1,5 @@
-"""Plan containers (twins of :mod:`tdwss.ops.plan` and ``SparseGrid``).
+"""Plan containers (twins of :mod:`tdwss.ops.plan` and ``SparseGrid``),
+and the device planner of the plans-free branch (:func:`build_plans`).
 
 Plain dataclasses.  The host planner (:mod:`tdwss_torch.ops.host_plan`)
 fills them with numpy arrays; :meth:`LevelPlans.to` moves every array
@@ -24,6 +25,8 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from tdwss_torch.ops.coords import lookup_sorted, make_query_keys
 
 
 def _to_tensor(a, device, non_blocking: bool = False):
@@ -278,3 +281,102 @@ def level_capacities(
         div = schedule[min(lvl, len(schedule) - 1)] if schedule else shrink
         cap = cap // max(int(div), 1)
     return tuple(caps)
+
+
+# ---------------------------------------------------------------------------
+# The device planner of the plans-free branch (tdwss/ops/plan.py:202-323):
+# each level's grid and rulebooks from the input grid, on the grid's
+# device, with fixed shapes and no host synchronisation.
+# ---------------------------------------------------------------------------
+
+
+def _offsets4(kernel_size: int, device) -> torch.Tensor:
+    """(K, 4) int32 offsets of :func:`tdwss_torch.ops.coords.kernel_offsets`
+    (odd sizes centred, x slowest) with a zero scene column, made on ``device`` (no copy from the host,
+    which would synchronise)."""
+    r = torch.arange(kernel_size, dtype=torch.int32, device=device)
+    if kernel_size % 2 == 1:
+        r = r - kernel_size // 2
+    grids = torch.meshgrid(r, r, r, indexing="ij")
+    cols = [g.reshape(-1) for g in grids]
+    return torch.stack(cols + [torch.zeros_like(cols[0])], dim=1)
+
+
+def build_subm_rulebook(grid: SparseGrid, kernel_size: int = 3
+                        ) -> torch.Tensor:
+    """(V, K) int32 neighbour index per offset of a centred cubic kernel,
+    -1 where there is none; the centre tap is the voxel itself (-1 at
+    invalid rows).  All V * K queries run as one search."""
+    k = kernel_size ** 3
+    v = grid.capacity
+    dev = grid.valid.device
+    q = grid.coords.to(torch.int32)[:, None, :] + _offsets4(kernel_size,
+                                                            dev)[None]
+    qh, ql = make_query_keys(q.reshape(v * k, 4),
+                             grid.valid[:, None].expand(v, k).reshape(-1))
+    rb = lookup_sorted(grid.key_hi, grid.key_lo, qh, ql).reshape(v, k)
+    # the zero offset: the middle of a centred (odd) kernel, else the first
+    centre = k // 2 if kernel_size % 2 else 0
+    own = torch.arange(v, dtype=torch.int32, device=dev)
+    rb[:, centre] = torch.where(grid.valid, own, torch.full_like(own, -1))
+    return rb
+
+
+def _linear_child_offset(coords: torch.Tensor, stride: int) -> torch.Tensor:
+    """Offset of a fine voxel within its parent cell, ``ox * f^2 + oy * f
+    + oz`` (the order of :func:`kernel_offsets` for even sizes)."""
+    c = coords.to(torch.int32) % stride
+    return (c[:, 0] * stride * stride + c[:, 1] * stride
+            + c[:, 2]).to(torch.int32)
+
+
+def downsample_level(grid: SparseGrid, num_voxels: int, filter_size: int,
+                     stride: int):
+    """The next coarser level and the fine <-> coarse maps:
+    ``(coarse_grid, parent (Vf,), child_offset (Vf,), down_rb (Vc, f^3))``
+    (int32, -1 where a coarse cell lacks that child).  Only
+    ``filter_size == stride``, as in the reference."""
+    from tdwss_torch.ops.voxelize import voxelize
+
+    if filter_size != stride:
+        raise NotImplementedError(
+            "strided conv with filter != stride is not used by the reference "
+            "models (downsample=[2,2] or [4,4])")
+    coords = grid.coords.to(torch.int32)
+    coarse_coords = torch.cat([coords[:, :3] // stride, coords[:, 3:4]], 1)
+    coarse_grid, _, parent = voxelize(coarse_coords, None, grid.valid,
+                                      num_voxels)
+    child_offset = _linear_child_offset(coords, stride)
+    k = filter_size ** 3
+    vf = grid.capacity
+    # parent == num_voxels (an invalid fine row) lands in the dump slot
+    flat = torch.where(parent < num_voxels, parent * k + child_offset,
+                       torch.full_like(parent, num_voxels * k))
+    down = torch.full((num_voxels * k + 1,), -1, dtype=torch.int32,
+                      device=coords.device)
+    down[flat.long()] = torch.arange(vf, dtype=torch.int32,
+                                     device=coords.device)
+    return (coarse_grid, parent, child_offset,
+            down[:num_voxels * k].reshape(num_voxels, k))
+
+
+def build_plans(grid0: SparseGrid, num_levels: int,
+                capacities: Sequence[int],
+                downsample: Tuple[int, int] = (2, 2),
+                subm_kernel: int = 3) -> LevelPlans:
+    """Every level's grid and rulebooks for an encoder forward, from the
+    input grid (rulebook form: no windowed metadata)."""
+    f, s = int(downsample[0]), int(downsample[1])
+    levels = []
+    grid = grid0
+    for lvl in range(num_levels):
+        subm_rb = build_subm_rulebook(grid, subm_kernel)
+        coarse = parent = child_offset = down_rb = None
+        if lvl + 1 < num_levels:
+            coarse, parent, child_offset, down_rb = downsample_level(
+                grid, int(capacities[lvl + 1]), f, s)
+        levels.append(GridLevel(grid=grid, subm_rb=subm_rb, parent=parent,
+                                child_offset=child_offset, down_rb=down_rb))
+        if coarse is not None:
+            grid = coarse
+    return LevelPlans(levels=tuple(levels), downsample=(f, s))

@@ -11,8 +11,10 @@ Routes, as in the reference:
   rulebooks (strided conv, deconv, unpool) through ``WindowedGather``
   metadata the same way;
 - :func:`strided_conv_apply`, :func:`deconv_apply` and :func:`unpool` are
-  the rulebook forms for levels without windowed metadata (plain
-  differentiable torch).
+  the rulebook forms for levels without windowed metadata, and of the
+  plans-free branch (plain torch: the rulebook gather-GEMM with a
+  backward of its own, :class:`_RulebookConv`; the rest differentiable
+  as written).
 
 Windows and spill tiers together are an exact cover of the rulebook, so
 every route computes ``out[v] = sum_k feats[rb[v, k]] @ W[k]``.  The
@@ -65,6 +67,44 @@ def _gather_matmul_impl(feats: torch.Tensor, rulebook: torch.Tensor,
     for a in range(k):
         out += _gather_rows(feats, rulebook[:, a]).float() @ w[a]
     return out.to(feats.dtype)
+
+
+class _RulebookConv(torch.autograd.Function):
+    """:func:`_gather_matmul_impl` with a backward that keeps only the
+    features, the rulebook and the weight: dW[k] = feats[rb[:, k]]^T dout
+    (rounded to the features' dtype, as autograd through the forward's
+    cast of W rounds it), and dfeats[s] = sum of dout[v] @ W[k]^T over
+    the entries rb[v, k] == s, added in f32 by ``index_add_`` (a missing
+    entry into a dump row that is sliced off).  Autograd through the
+    forward would keep each tap's gathered (V, Cin) f32 rows: 27 copies
+    of the input per subm conv."""
+
+    @staticmethod
+    def forward(ctx, feats, rulebook, weight):
+        ctx.save_for_backward(feats, rulebook, weight)
+        return _gather_matmul_impl(feats, rulebook, weight)
+
+    @staticmethod
+    def backward(ctx, dout):
+        feats, rb, weight = ctx.saved_tensors
+        n, k = feats.shape[0], rb.shape[1]
+        d = dout.float()
+        dfeats = dw = None
+        if ctx.needs_input_grad[2]:
+            dw = torch.stack([_gather_rows(feats, rb[:, a]).float().t() @ d
+                              for a in range(k)])
+            dw = dw.to(feats.dtype).to(weight.dtype)
+        if ctx.needs_input_grad[0]:
+            w = weight.to(feats.dtype).float()
+            acc = torch.zeros((n + 1, feats.shape[1]), dtype=torch.float32,
+                              device=feats.device)
+            for a in range(k):
+                idx = rb[:, a]
+                idx = torch.where((idx >= 0) & (idx < n), idx,
+                                  torch.full_like(idx, n))
+                acc.index_add_(0, idx.long(), d @ w[a].t())
+            dfeats = acc[:n].to(feats.dtype)
+        return dfeats, None, dw
 
 
 # ---------------------------------------------------------------------------
@@ -595,11 +635,11 @@ def subm_conv_apply(feats: torch.Tensor, rulebook: torch.Tensor,
     feats (V, Cin); rulebook (V, 27) (a placeholder at windowed levels);
     weight (27, Cin, Cout) -> (V, Cout) in feats' dtype.  ``win``
     (Windowed27) selects the windowed route and its kernel backward;
-    the rulebook route is plain differentiable torch.
+    the rulebook route is plain torch (:class:`_RulebookConv`).
     """
     if win is not None and rulebook.shape[-1] == 27:
         return _SubmConvW27.apply(feats, weight, win)
-    return _gather_matmul_impl(feats, rulebook, weight)
+    return _RulebookConv.apply(feats, rulebook, weight)
 
 
 def strided_conv_apply(fine_feats: torch.Tensor, down_rb: torch.Tensor,
@@ -610,7 +650,7 @@ def strided_conv_apply(fine_feats: torch.Tensor, down_rb: torch.Tensor,
     """Strided convolution fine -> coarse (filter == stride): down_rb
     (Vc, f^3) into the fine level, weight (f^3, Cin, Cout) -> (Vc, Cout).
     ``parent`` / ``child_offset`` serve the reference's backward only."""
-    return _gather_matmul_impl(fine_feats, down_rb, weight)
+    return _RulebookConv.apply(fine_feats, down_rb, weight)
 
 
 def deconv_apply(coarse_feats: torch.Tensor, parent: torch.Tensor,

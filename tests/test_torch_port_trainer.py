@@ -14,7 +14,10 @@ reference's:
 - ``pretrain`` seeds the parameters and batch-norm buffers only (the
   optimiser and step stay fresh), and only on a fresh run;
 - validation runs at epochs 1, 2, 4, 8, 16 and 32 and at no other;
-- ``mesh.data > 1`` is refused.
+- ``mesh.data > 1`` is refused without a process group (naming
+  ``torchrun``), with a group of another size, and with a batch size
+  that does not divide across ``mesh.data`` (the data-parallel run
+  itself is held in ``test_torch_port_dp_trainer.py``).
 """
 
 import copy
@@ -200,7 +203,33 @@ def test_validation_schedule(tmp_path, monkeypatch):
 
 
 def test_mesh_data_refused():
+    """Without a process group: refused, naming torchrun."""
     cfg = copy.deepcopy(_port_cfg())
     cfg.mesh.data = 4
-    with pytest.raises(NotImplementedError, match="A.5"):
+    cfg.pointcloud_data.batch_size = 8
+    assert not torch.distributed.is_initialized()
+    with pytest.raises(RuntimeError, match="torchrun --nproc_per_node=4"):
+        train.Trainer(cfg, [], [], device="cpu")
+
+
+def test_mesh_data_refused_on_world_size(tmp_path):
+    cfg = copy.deepcopy(_port_cfg())
+    cfg.mesh.data = 4
+    cfg.pointcloud_data.batch_size = 8
+    dist = torch.distributed
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        with pytest.raises(ValueError, match="holds 1 ranks"):
+            train.Trainer(cfg, [], [], device="cpu")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_mesh_data_refused_on_batch_size():
+    cfg = copy.deepcopy(_port_cfg())
+    cfg.mesh.data = 4
+    cfg.pointcloud_data.batch_size = 6
+    with pytest.raises(ValueError, match="batch_size 6 must divide across "
+                                         "mesh.data=4 devices"):
         train.Trainer(cfg, [], [], device="cpu")
