@@ -19,8 +19,9 @@ drives the experimental brick engine at the bench level 0, drives
 the weak-supervision loop through the port's entry points (``Trainer``,
 the pseudo-label stage, ``FullySupervised`` and the train CLI) at
 SparseConvFCNet's width, trains the 4-chip config data-parallel on 4
-ranks that share the card, and runs the bench UNet without host plans
-(on-device voxelization and rulebooks), and checks them:
+ranks that share the card, runs the bench UNet without host plans
+(on-device voxelization and rulebooks) and with ``engine.remat``, and
+trains the KPConv backbone (KPFCNN) at its full width, and checks them:
 
 1. device: the card's name and power limit, torch and CUDA versions;
 2. build: the kernels' four shared libraries (nvcc: forward K1/K4,
@@ -162,9 +163,27 @@ ranks that share the card, and runs the bench UNet without host plans
     step's loss (LOSS_RTOL); host seconds per batch (collate alone
     against collate + plans + slim), device seconds per step of both
     paths, peak memory;
-15. one JSON line with the numbers of every ported kernel (K1-K7, each
+15. remat: the bench UNet with ``engine.remat: true`` (the encoder body
+    under ``torch.utils.checkpoint``), 2 training steps with the launch
+    counts set to 0 just before and read just after, equal to the plans'
+    routing with the body's forward counted twice, every launch on the
+    tensor-core body; the same 2 steps without remat from the same
+    weights, the losses, the last gradients, the parameters and the
+    running statistics bit for bit; peak memory and device ms per step
+    of both;
+16. KPConv: KPFCNN at ``KPConvConfig()``'s width (SCANNET_ARCHITECTURE,
+    first_features_dim 64, 15 kernel points, dl 0.04 m, in_radius 2 m,
+    20 classes, f32; plain PyTorch, no kernel) on 8 spheres drawn by
+    ``PotentialSampler`` from the scenes grid-subsampled at 0.04 m: the
+    host pyramid timed, an eval forward, one train step's logits, loss
+    and gradients against the CPU on the same weights (the reference's
+    NaN offset gradients at the same sites), a planted fault (a shadow
+    neighbour read as row 0) caught, 3 Adam steps with the deform group
+    (CUDA events, peak memory, the loss falling, every parameter moved)
+    and no synchronising call in a warm step;
+17. one JSON line with the numbers of every ported kernel (K1-K7, each
     with its launches over the main paths, the loop, the brick path and
-    the DP and plans-free paths, 0 included), the card line from
+    the DP, plans-free and remat paths, 0 included), the card line from
     ``nvidia-smi``, and the result line.
 
 Any failure raises and the exit code is not 0.  Without CUDA, or without
@@ -3085,6 +3104,327 @@ def phase_plans_free(scenes, device):
     return launches
 
 
+# KPConv phase (KPFCNN at KPConvConfig()'s full width, f32): tolerances
+# of the card against the CPU on the same weights and batch, measured on
+# the card (H100, TF32 off) against an f64 step on the card host's CPU
+# (``python3 -m tdwss_torch.tools.kpconv_grads``):
+# the f32 step is ill-conditioned at this width (5 layers of batch norm
+# in train mode over as few as 488 rows, min-distance selections in the
+# deformable layers), so the CPU's and the card's f32 gradients each
+# stand up to 2.1% (norm) and 14.6% (largest entry, of the tensor's max)
+# from the f64 ones, and 1.7% (norm) from each other (two card runs are
+# not bit for bit: the gathers' embedding backward adds with atomics);
+# logits 1.4e-5 / 4.4e-5 of max from f64:
+# - logits of a train forward: max|d| <= KP_LOGITS_TOL * max|cpu|;
+# - the loss (CE + regulariser): relative KP_LOSS_RTOL;
+# - each parameter's gradient: ||d|| <= KP_GRAD_RTOL * ||cpu|| over the
+#   finite entries (phase_train's f32 limit), NaN exactly where the CPU
+#   has NaN.
+KP_LOGITS_TOL = 5e-4
+KP_LOSS_RTOL = 1e-5
+KP_GRAD_RTOL = 0.05
+KP_SPHERES = 8
+KP_STEPS = 3
+KP_LR = 1e-3
+REMAT_STEPS = 2
+
+
+def phase_kpconv(scenes, device):
+    """KPFCNN at ``KPConvConfig()`` as shipped (SCANNET_ARCHITECTURE,
+    first_features_dim 64, 15 kernel points, dl 0.04, in_radius 2.0,
+    deformable layers 2-4, 20 classes, f32) on KP_SPHERES spheres drawn
+    by ``PotentialSampler`` from the scenes grid-subsampled at 0.04 m,
+    neighbour limits from ``calibrate_neighbors``: the host pyramid
+    (``segmentation_inputs``, timed), an eval forward, one train step's
+    logits, loss and gradients on the card against the same weights and
+    batch on the CPU (NaN sites included: the reference's padding rows
+    give NaN offset gradients), a planted fault (a shadow neighbour read
+    as row 0) that the logits check must catch, KP_STEPS Adam steps with
+    the deform group on the same spheres padded to their exact sizes
+    (no padding rows; CUDA events, peak memory; the loss finite and
+    falling, every parameter moved), and a warm step under sync debug
+    mode."""
+    import torch
+
+    from tdwss_torch.models.kpconv import (KPFCNN, KPConvConfig,
+                                           calibrate_neighbors, kpfcnn_loss,
+                                           param_groups, segmentation_inputs)
+    from tdwss_torch.models.kpconv import ops as kp_ops
+    from tdwss_torch.tools.kpconv_grads import draw_spheres, kpconv_clouds
+
+    cfg = KPConvConfig()
+    t = time.perf_counter()
+    clouds = kpconv_clouds(scenes, cfg)
+    sub_s = time.perf_counter() - t
+    t = time.perf_counter()
+    spheres = draw_spheres(clouds, cfg, KP_SPHERES)
+    sample_s = time.perf_counter() - t
+    t = time.perf_counter()
+    limits = calibrate_neighbors(spheres, cfg)
+    calib_s = time.perf_counter() - t
+    pyr_s = []
+    for _ in range(2):
+        t = time.perf_counter()
+        host = segmentation_inputs(spheres, cfg, neighbor_limits=limits)
+        pyr_s.append(time.perf_counter() - t)
+    exact = [int(v.sum()) for v in host.valids]
+    host_exact = segmentation_inputs(spheres, cfg, capacities=exact,
+                                     neighbor_limits=limits)
+    log(f"KPConv: {len(scenes)} scenes grid-subsampled at "
+        f"{cfg.first_subsampling_dl} m in {sub_s:.3f} s "
+        f"({', '.join(str(c['points'].shape[0]) for c in clouds)} points); "
+        f"{len(spheres)} spheres of {cfg.in_radius} m drawn in "
+        f"{sample_s:.3f} s ("
+        + ", ".join(str(s["points"].shape[0]) for s in spheres)
+        + f" points); neighbour limits {limits} calibrated in {calib_s:.3f} s;"
+        f" host pyramid (segmentation_inputs) {pyr_s[0]:.3f} s, again "
+        f"{pyr_s[1]:.3f} s; layer rows (valid / capacity): " + ", ".join(
+            f"{int(v.sum())}/{v.shape[0]}" for v in host.valids)
+        + "; neighbour widths " + ", ".join(
+            str(n.shape[1]) for n in host.neighbors))
+
+    model = KPFCNN(cfg, seed=0, device=device)
+    cpu_model = KPFCNN(cfg, seed=0, device="cpu")
+    cpu_model.load_state_dict(model.state_dict())
+    n_params = sum(p.numel() for p in model.parameters())
+    batch = host.to(device)
+    cpu_batch = host.to("cpu")
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    with torch.no_grad():
+        model(batch, train=False)                 # warm-up
+        ev[0].record()
+        logits, _ = model(batch, train=False)
+        ev[1].record()
+    ev[1].synchronize()
+    eval_ms = ev[0].elapsed_time(ev[1])
+    if logits.shape != (host.valids[0].shape[0], cfg.num_classes) or \
+            not torch.isfinite(logits).all():
+        raise AssertionError(f"KPConv: bad eval logits {logits.shape}")
+    log(f"KPConv: KPFCNN, {n_params} parameters; eval forward on the card "
+        f"{eval_ms:.3f} ms (CUDA events), logits {tuple(logits.shape)}")
+
+    def step_outputs(m, b):
+        m.zero_grad(set_to_none=True)
+        lo, auxes = m(b, train=True)
+        loss = kpfcnn_loss(lo, b.labels, auxes, cfg)
+        loss.backward()
+        return (lo.detach().cpu(), float(loss.detach()),
+                {n: p.grad.detach().cpu() for n, p in m.named_parameters()})
+
+    state = copy.deepcopy(model.state_dict())
+    cpu_state = copy.deepcopy(cpu_model.state_dict())
+    t = time.perf_counter()
+    lo_c, loss_c, g_c = step_outputs(cpu_model, cpu_batch)
+    cpu_s = time.perf_counter() - t
+    lo_g, loss_g, g_g = step_outputs(model, batch)
+    model.load_state_dict(state)
+    cpu_model.load_state_dict(cpu_state)
+    d_lo = (lo_g - lo_c).abs().max().item() / lo_c.abs().max().item()
+    d_loss = abs(loss_g - loss_c) / abs(loss_c)
+    worst, nan_params, failures = [], [], []
+    for n in g_c:
+        a, b = g_g[n], g_c[n]
+        if not torch.equal(torch.isnan(a), torch.isnan(b)):
+            failures.append(f"NaN sites of {n}'s gradient differ")
+        fin = torch.isfinite(b)
+        if torch.isnan(b).any():
+            nan_params.append(n)
+        if fin.any():
+            ref = torch.linalg.vector_norm(b[fin]).item()
+            worst.append((torch.linalg.vector_norm(a[fin] - b[fin]).item()
+                          / max(ref, 1e-30),
+                          (a[fin] - b[fin]).abs().max().item()
+                          / max(b[fin].abs().max().item(), 1e-30), n))
+    worst.sort(reverse=True)
+    log(f"KPConv: one train step on the card vs the CPU ({cpu_s:.2f} s on "
+        f"the CPU): logits max|d| / max|cpu| {d_lo:.3g} (limit "
+        f"{KP_LOGITS_TOL}); loss {loss_g:.8f} vs {loss_c:.8f}, relative "
+        f"{d_loss:.3g} (limit {KP_LOSS_RTOL}); gradients ||d|| / ||cpu|| "
+        f"(and max|d| / max|cpu|) over {len(worst)} tensors, largest: "
+        + ", ".join(f"{n} {r:.3g} ({m:.3g})" for r, m, n in worst[:3])
+        + f" (limit {KP_GRAD_RTOL}); NaN gradients (the padding rows' zero "
+        f"distance, as the reference) in {nan_params}")
+    if d_lo > KP_LOGITS_TOL or d_loss > KP_LOSS_RTOL or \
+            worst[0][0] > KP_GRAD_RTOL:
+        failures.append("the card disagrees with the CPU")
+
+    def shadow_reads_row0(x, idx, fill):
+        n = x.shape[0]
+        safe = torch.where((idx >= 0) & (idx < n), idx, 0)
+        return x[safe.long()]
+
+    saved = kp_ops._take_fill
+    kp_ops._take_fill = shadow_reads_row0
+    try:
+        with torch.no_grad():
+            faulty, _ = model(batch, train=True)
+    finally:
+        kp_ops._take_fill = saved
+    model.load_state_dict(state)
+    with torch.no_grad():
+        clean, _ = cpu_model(cpu_batch, train=True)
+    cpu_model.load_state_dict(cpu_state)
+    d_fault = ((faulty.cpu() - clean).abs().max().item()
+               / clean.abs().max().item())
+    log(f"KPConv: planted fault (a shadow neighbour read as row 0): logits "
+        f"max|d| / max|cpu| {d_fault:.3g} against the limit "
+        f"{KP_LOGITS_TOL}")
+    if not d_fault > KP_LOGITS_TOL:
+        failures.append("the planted fault was not caught")
+    del cpu_model, cpu_batch
+
+    ebatch = host_exact.to(device)
+    opt = torch.optim.Adam(param_groups(model, KP_LR), betas=(0.9, 0.999),
+                           eps=1e-8)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def train_one():
+        opt.zero_grad(set_to_none=True)
+        lo, auxes = model(ebatch, train=True)
+        loss = kpfcnn_loss(lo, ebatch.labels, auxes, cfg)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    losses, step_ms = [], []
+    for _ in range(KP_STEPS):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        losses.append(train_one())
+        ev[1].record()
+        ev[1].synchronize()
+        step_ms.append(ev[0].elapsed_time(ev[1]))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [float(x) for x in losses]
+    unmoved = [n for n, p in model.named_parameters()
+               if torch.equal(p.detach(), before[n])]
+    syncs = list_syncs(train_one)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        train_one()
+        torch.cuda.synchronize()
+    # the host-side operations: each kernel's time counts once, under the
+    # operation that launched it
+    ops = sorted((e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CPU),
+                 key=lambda e: -e.self_device_time_total)
+    dev_ms = sum(e.self_device_time_total for e in ops) / 1e3
+    log(f"KPConv: one warm step traced: kernels {dev_ms:.3f} ms in all "
+        f"(beside the untraced step's {step_ms[-1]:.3f} ms), top "
+        f"operations by self device time: " + ", ".join(
+            f"{e.key} {e.self_device_time_total / 1e3:.3f} ms / {e.count}"
+            for e in ops[:8]))
+    log(f"KPConv: {KP_STEPS} Adam steps (lr {KP_LR}, deform group x"
+        f"{cfg.deform_lr_factor}) on the spheres at their exact sizes "
+        f"({', '.join(str(c) for c in exact)} rows): losses "
+        f"{', '.join(f'{x:.6f}' for x in losses)}; device ms per step "
+        f"(CUDA events) {', '.join(f'{x:.3f}' for x in step_ms)}; peak "
+        f"device memory {peak:.2f} GiB; parameters that did not move: "
+        f"{unmoved}; synchronising calls in a warm step: {len(syncs)} "
+        f"sites: {json.dumps(syncs)}")
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        failures.append(f"the training loss is not finite and falling: "
+                        f"{losses}")
+    if unmoved:
+        failures.append(f"parameters that did not move: {unmoved}")
+    if syncs:
+        failures.append("a warm KPFCNN step synchronises")
+    if failures:
+        raise AssertionError("KPConv: " + "; ".join(failures))
+
+
+def phase_remat(scenes, device):
+    """The bench UNet (m=32, block_reps 2, residual, 7 levels, bf16) with
+    ``engine.remat: true`` on the bench batch: REMAT_STEPS training steps
+    with the launch counts set to 0 just before and read just after,
+    equal to the plans' routing with the body's forward counted twice
+    (every launch on the tensor-core body); the same steps without remat
+    from the same weights, the losses, the last step's gradients, the
+    parameters and the running statistics bit for bit; peak memory and
+    device ms per step of both.  Returns the remat run's launches."""
+    import torch
+
+    from tdwss_torch.engine.steps import make_optimizer, train_step
+    from tdwss_torch.models.meta_arch import build_model
+    from tdwss_torch.ops import windowed as W
+
+    cfg = bench_config()
+    cfg.engine.remat = True
+    _, host, _ = plan_train_batch(cfg, scenes, "remat")
+    batch = host.to(device)
+    runs, want = {}, None
+    for remat in (True, False):
+        c = copy.deepcopy(cfg)
+        c.engine.remat = remat
+        model = build_model(c, seed=0, device=device)
+        if model.pc_encoder.remat is not remat:
+            raise AssertionError("engine.remat did not reach the encoder")
+        if remat:
+            fwd = expected_launches(model, host.plans, train=False)
+            stem = W.K1 if host.plans.levels[0].win.sub else W.K4
+            fwd[stem] -= 1               # the stem is outside the body
+            per_step = expected_launches(model, host.plans, train=True)
+            want = {k: (v + fwd[k]) * REMAT_STEPS
+                    for k, v in per_step.items()}
+        opt, sched = make_optimizer(c, model, STEPS_PER_EPOCH)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        W.reset_launches()
+        losses, step_ms = [], []
+        for _ in range(REMAT_STEPS):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            loss, _ = train_step(c, model, opt, sched, batch)
+            ev[1].record()
+            ev[1].synchronize()
+            step_ms.append(ev[0].elapsed_time(ev[1]))
+            losses.append(loss.detach())
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        launches = dict(W.launches)
+        if remat:
+            check_bodies("remat")
+        runs[remat] = dict(
+            losses=[float(x) for x in losses], ms=step_ms, peak=peak,
+            launches=launches,
+            grads={n: p.grad.detach().cpu()
+                   for n, p in model.named_parameters()},
+            state={k: v.detach().cpu()
+                   for k, v in model.state_dict().items()})
+        del model, opt, sched
+    on, off = runs[True], runs[False]
+    same = (on["losses"] == off["losses"]
+            and all(torch.equal(on["grads"][n], off["grads"][n])
+                    for n in off["grads"])
+            and all(torch.equal(on["state"][k], off["state"][k])
+                    for k in off["state"]))
+    log(f"remat: {REMAT_STEPS} bf16 steps with engine.remat: losses "
+        f"{on['losses']}, device ms per step (CUDA events) "
+        f"{', '.join(f'{x:.3f}' for x in on['ms'])}, peak device memory "
+        f"{on['peak']:.3f} GiB; without remat: losses {off['losses']}, "
+        f"device ms per step {', '.join(f'{x:.3f}' for x in off['ms'])}, "
+        f"peak {off['peak']:.3f} GiB; losses, last gradients, parameters "
+        f"and running statistics bit-identical: {same}")
+    log(f"remat: launches in {REMAT_STEPS} steps {on['launches']}; the "
+        f"plans' routing with the body's forward twice {want}; without "
+        f"remat {off['launches']}")
+    if on["launches"] != want or not on["launches"][W.K1]:
+        raise AssertionError(f"remat: launches differ from the plans' "
+                             f"routing with the body twice: "
+                             f"{on['launches']} vs {want}")
+    if not same:
+        raise AssertionError("remat: the steps differ from the steps "
+                             "without remat")
+    return on["launches"]
+
+
 def main() -> int:
     import argparse
 
@@ -3206,6 +3546,8 @@ def main() -> int:
      paths["loop, text Trainer"]) = phase_loop(scenes, device)
     paths["DP"] = phase_dp(device)
     paths["plans-free"] = phase_plans_free(scenes, device)
+    paths["remat"] = phase_remat(scenes, device)
+    phase_kpconv(scenes, device)
     # The kernels line lists every ported kernel with its launches summed
     # over the paths (0 for K4 and K5: no plan of any path is flat-form).
     for row in rows:

@@ -79,6 +79,7 @@ class EngineConfig:
     level_capacity_schedule: Optional[List[int]] = None
     min_level_capacity: int = 2048
     compute_dtype: str = "float32"   # "bfloat16" for the bench config
+    remat: bool = False              # recompute the encoder body in backward
     host_plans: bool = True          # rulebooks are built on the host
     slim_device_plans: bool = True   # narrow rb_local dtypes, drop dead leaves
     collate_workers: int = 4         # host collate/plan threads

@@ -9,7 +9,10 @@ output) and names them as the port's modules do;
 - Batch-norm and LayerNorm ``scale``/``bias`` become ``weight``/``bias``,
   batch-norm ``mean``/``var`` ``running_mean``/``running_var``.
 - Dense kernels (the ``linear`` head, ``text_linear``, the text blocks'
-  ``c_fc``/``c_proj``) are (in, out); ``nn.Linear``'s weight is (out, in).
+  ``c_fc``/``c_proj``, KPFCNN's unary ``mlp``) are (in, out);
+  ``nn.Linear``'s weight is (out, in).
+- KPFCNN's kernel-point ``weights`` (K, Cin, Cout) and ``offset_bias``
+  keep their names and layouts.
 - The attention's ``query``/``key``/``value`` kernels (in, heads,
   head_dim) and biases (heads, head_dim), and its ``out`` kernel (heads,
   head_dim, out), become ``nn.Linear`` weights and biases over
@@ -29,7 +32,8 @@ import torch
 from tdwss_torch.models.transformer import heads_of
 
 _BN_STATS = {"mean": "running_mean", "var": "running_var"}
-_DENSE = ("linear", "text_linear", "c_fc", "c_proj")
+_DENSE = ("linear", "text_linear", "c_fc", "c_proj", "mlp")
+_AS_IS = ("kernel", "bias", "weights", "offset_bias")
 _ATTN = ("query", "key", "value", "out")
 
 
@@ -70,7 +74,7 @@ def flax_to_state_dict(params: Mapping,
             key = name
         elif name == "scale":
             key = "weight"
-        elif name in ("kernel", "bias"):
+        elif name in _AS_IS:
             key = name
         else:
             raise KeyError(f"unexpected flax parameter {'/'.join(path)}")
@@ -122,7 +126,7 @@ def state_dict_to_flax(sd: Mapping[str, torch.Tensor]
             _put(params, owner + (key,), arr)
         elif key == "weight":
             _put(params, owner + ("scale",), arr)
-        elif key in ("kernel", "bias"):
+        elif key in _AS_IS:
             _put(params, owner + (key,), arr)
         else:
             raise KeyError(f"unexpected state_dict entry {name}")

@@ -5,9 +5,10 @@ prefetching train loader, a checkpoint every epoch with auto-resume,
 validation at power-of-two epochs and every 32nd
 (``scn.is_power2(epoch) or epoch % 32 == 0``, train.py:94), the train
 loss and validation mIoU logged as scalars, and the parameter count
-printed.  The epoch line carries no MegaMulAdd: the reference reads it
-from XLA's cost analysis, and no PyTorch counter sees the port's
-hand-written kernels (``ROADMAP.md`` A.7).
+printed.  The epoch line carries MegaMulAdd per scene, counted from the
+first batch's plans (:func:`tdwss_torch.utils.flops.mega_mul_add`; the
+reference reads XLA's cost analysis of the step, which counts other
+ops).
 
 With ``mesh.data > 1`` the ``Trainer`` trains data-parallel over an
 initialised ``torch.distributed`` group of ``mesh.data`` ranks (started
@@ -39,7 +40,7 @@ from tdwss_torch.engine.steps import make_optimizer, train_step
 from tdwss_torch.models.meta_arch import build_model
 from tdwss_torch.parallel import dp
 from tdwss_torch.utils.checkpoint import Checkpointer, load_pretrain
-from tdwss_torch.utils.flops import param_count
+from tdwss_torch.utils.flops import mega_mul_add, param_count
 from tdwss_torch.utils.logging_util import ScalarLogger
 
 # Steps the host may run ahead of the card: each in-flight step holds
@@ -121,6 +122,7 @@ class Trainer:
         self.optimizer, self.scheduler = make_optimizer(cfg, self.model,
                                                         self.spe)
         self.step = 0
+        self.madds: Optional[float] = None
         self.warmed_epochs = []
         if cfg.engine.prewarm_shapes:
             self.warmed_epochs = warm_plan_shapes(
@@ -176,6 +178,12 @@ class Trainer:
         cuda = self.device.type == "cuda"
         for batch in train_batches(self.train_scenes, self._local_cfg, epoch,
                                    to_device=self.device, shard=self.shard):
+            if self.madds is None:
+                # this rank's batch over its scenes: per scene as the
+                # reference's count of the device-stacked batch
+                self.madds = mega_mul_add(
+                    self.model, batch,
+                    per=self._local_cfg.pointcloud_data.batch_size)
             loss, _ = train_step(self._local_cfg, self.model,
                                  self.optimizer, self.scheduler, batch,
                                  group=self.group)
@@ -207,8 +215,9 @@ class Trainer:
             mean_loss = self.run_epoch(epoch)
             history.append(mean_loss)
             if self.verbose:
-                print(epoch, "Train loss", mean_loss, "time",
-                      round(time.time() - start, 2), "s")
+                print(epoch, "Train loss", mean_loss,
+                      "MegaMulAdd", round(self.madds or 0.0, 1),
+                      "time", round(time.time() - start, 2), "s")
             if self.rank == 0:
                 self.logger.scalar("Train Loss", mean_loss, epoch)
                 if self.ckpt is not None:

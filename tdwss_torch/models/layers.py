@@ -17,6 +17,8 @@ compute dtype (bf16 in the bench config).  Initialisation draws from the
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Optional
 
 import torch
@@ -24,6 +26,22 @@ from torch import nn
 
 from tdwss_torch.ops.sparse_conv import (deconv_apply, strided_conv_apply,
                                          subm_conv_apply, wg_conv_apply)
+
+
+_state = threading.local()
+
+
+@contextlib.contextmanager
+def recomputing():
+    """Mark a checkpointed forward's recomputation in the backward (on
+    this thread): batch norm keeps its running statistics there, as the
+    first forward has updated them once."""
+    prev = getattr(_state, "recomputing", False)
+    _state.recomputing = True
+    try:
+        yield
+    finally:
+        _state.recomputing = prev
 
 
 def he_normal(shape, fan_in: int, generator: Optional[torch.Generator]):
@@ -106,7 +124,8 @@ class MaskedBatchNorm(nn.Module):
     Not ``nn.BatchNorm1d``: padding rows stay out of the statistics and
     come out as zeros, and the running averages follow the flax update
     ``ra = momentum * ra + (1 - momentum) * batch`` with the unbiased
-    batch variance (the normalisation uses the biased one).
+    batch variance (the normalisation uses the biased one).  Inside
+    :func:`recomputing` the running averages stay as they are.
     """
 
     def __init__(self, num_features: int, momentum: float = 0.9,
@@ -129,15 +148,19 @@ class MaskedBatchNorm(nn.Module):
             mean = xf.sum(0) / count
             var = torch.clamp((xf * xf).sum(0) / count - mean * mean,
                               min=0.0)
-            with torch.no_grad():
-                unbiased = var * (count / torch.clamp(count - 1.0, min=1.0))
-                self.running_mean.mul_(self.momentum).add_(
-                    (1 - self.momentum) * mean)
-                self.running_var.mul_(self.momentum).add_(
-                    (1 - self.momentum) * unbiased)
+            if not getattr(_state, "recomputing", False):
+                self._update_running(mean, var, count)
         inv = torch.rsqrt(var + self.eps) * self.weight
         out = ((feats.float() - mean) * inv + self.bias).to(feats.dtype)
         return torch.where(valid[:, None], out, torch.zeros_like(out))
+
+    def _update_running(self, mean, var, count):
+        with torch.no_grad():
+            unbiased = var * (count / torch.clamp(count - 1.0, min=1.0))
+            self.running_mean.mul_(self.momentum).add_(
+                (1 - self.momentum) * mean)
+            self.running_var.mul_(self.momentum).add_(
+                (1 - self.momentum) * unbiased)
 
 
 class BatchNormReLU(nn.Module):

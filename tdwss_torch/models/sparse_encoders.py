@@ -26,20 +26,25 @@ plans-free branch, ``engine.host_plans: false``) the encoder voxelizes
 the points and builds every level's rulebooks on the device
 (:func:`tdwss_torch.ops.voxelize.voxelize`,
 :func:`tdwss_torch.ops.plan.build_plans`), and its convs run the
-rulebook routes.
+rulebook routes.  With ``engine.remat`` the body runs under
+``torch.utils.checkpoint`` (one segment, as the reference's ``nn.remat``
+over the body): its forward runs again in the backward, and batch norm
+updates its running statistics in the first forward only.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Sequence, Tuple
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from tdwss_torch.config import EngineConfig
 from tdwss_torch.models.layers import (BatchNormReLU, Deconv,
                                        NetworkInNetwork, StridedConv,
-                                       SubmConv)
+                                       SubmConv, recomputing)
 from tdwss_torch.ops.plan import LevelPlans, build_plans, level_capacities
 from tdwss_torch.ops.segment import segment_mean_weighted
 from tdwss_torch.ops.sparse_conv import unpool, wg_unpool_apply
@@ -278,16 +283,17 @@ class SparseEncoder(nn.Module):
     ``pc_config`` and ``engine`` (the encoder's and the engine's
     configs) give the plans-free branch its capacities
     (:func:`plan_spec`); without them the encoder runs on host plans
-    only."""
+    only.  ``remat`` recomputes the body in the backward."""
 
     def __init__(self, body_cls, planes: Sequence[int], out_width: int,
                  block_reps: int = 1, residual_blocks: bool = False,
                  downsample: Sequence[int] = (2, 2),
                  compute_dtype: str = "float32", in_channels: int = 3,
                  generator: Optional[torch.Generator] = None,
-                 pc_config=None, engine=None):
+                 pc_config=None, engine=None, remat: bool = False):
         super().__init__()
         self.pc_config, self.engine = pc_config, engine
+        self.remat = remat
         if downsample[0] != downsample[1]:
             raise NotImplementedError("filter != stride is not supported")
         self.m = planes[0]
@@ -321,7 +327,7 @@ class SparseEncoder(nn.Module):
         lvl0 = plans.levels[0]
         h = self.stem(vox_feats.to(self.compute_dtype), lvl0.subm_rb,
                       lvl0.win)
-        h = self.body(h, plans, 0, train)
+        h = self._run_body(h, plans, train)
         h = self.final_bnrelu(h, lvl0.grid.valid, train)
         if istrain:
             # slim plans ship only the scene-id column of grid.coords
@@ -332,6 +338,17 @@ class SparseEncoder(nn.Module):
             return devoxelize_seg(h.float(), point2voxel, point_perm,
                                   lvl0.grid.counts)
         return devoxelize(h.float(), point2voxel)
+
+    def _run_body(self, h, plans, train: bool):
+        if not (self.remat and torch.is_grad_enabled()):
+            return self.body(h, plans, 0, train)
+        # the whole body is recomputed (no early stop), so each of its
+        # forward kernels runs twice per training step
+        with torch.utils.checkpoint.set_checkpoint_early_stop(False):
+            return torch.utils.checkpoint.checkpoint(
+                self.body, h, plans, 0, train, use_reentrant=False,
+                preserve_rng_state=False,
+                context_fn=lambda: (contextlib.nullcontext(), recomputing()))
 
 
 def build_sparse_encoder(pc_config, compute_dtype: str = "float32",
@@ -348,4 +365,5 @@ def build_sparse_encoder(pc_config, compute_dtype: str = "float32",
                          residual_blocks=pc_config.residual_blocks,
                          downsample=tuple(pc_config.downsample),
                          compute_dtype=compute_dtype, generator=generator,
-                         pc_config=pc_config, engine=engine)
+                         pc_config=pc_config, engine=engine,
+                         remat=bool(engine and engine.remat))

@@ -10,6 +10,11 @@ or switched off (:func:`disabled`), and the callers in
 :mod:`tdwss_torch.ops.host_plan` then take their numpy paths.  A caller
 that must not fall back (the chip smoke run) calls :func:`require`,
 which builds or raises.
+
+The KPConv host ops (:func:`grid_subsample`, :func:`radius_neighbors`)
+and :func:`region_grow` never fall back silently: they build the
+library or raise, and run their numpy versions only inside
+:func:`disabled` (``region_grow`` has none and raises there).
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ import contextlib
 import ctypes
 import hashlib
 import os
+import platform
 import subprocess
 import threading
 from typing import Optional
@@ -27,7 +33,27 @@ import numpy as np
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SOURCE = os.path.join(_REPO_ROOT, "native", "tdwss_native.cpp")
 BUILD_DIR = os.path.join(_REPO_ROOT, "build", "tdwss_torch")
-CXX_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-shared", "-pthread"]
+
+
+def _fma_flags():
+    """``-mfma`` on an x86-64 host whose CPU has FMA3.  The reference
+    library builds with ``-march=native``, which contracts
+    ``radius_neighbors``' squared distances into FMAs; without the same
+    contraction, neighbours whose distances differ in the last bit come
+    out in another order when a row overflows."""
+    if platform.machine() not in ("x86_64", "AMD64"):
+        return []
+    try:
+        with open("/proc/cpuinfo") as f:
+            flags = next((line for line in f if line.startswith("flags")),
+                         "")
+    except OSError:
+        return []
+    return ["-mfma"] if " fma" in flags else []
+
+
+CXX_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-shared", "-pthread",
+             *_fma_flags()]
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -73,6 +99,9 @@ def _open() -> ctypes.CDLL:
         raise RuntimeError(
             "tdwss_native win-align contract differs from "
             "tdwss_torch.ops.host_plan.WIN_ALIGN")
+    lib.grid_subsample.restype = ctypes.c_int32
+    lib.radius_neighbors.restype = None
+    lib.region_grow.restype = ctypes.c_int32
     lib.subm_rulebook.restype = None
     lib.voxelize.restype = ctypes.c_int32
     lib.windowed_rb.restype = ctypes.c_int64
@@ -129,6 +158,10 @@ def disabled():
 
 def _i32(a: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(a, np.int32)
+
+
+def _f32(a: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(a, np.float32)
 
 
 def _p(a, ct=ctypes.c_int32):
@@ -286,3 +319,121 @@ def subm_windowed_plan(coords: np.ndarray, valid: np.ndarray, tile: int,
         lib.subm_windowed_plan(*args[:-1], _p(spills),
                                ctypes.c_int64(int(total)))
     return starts, sub_off, rb_local, spills[: int(total)]
+
+
+def _host_op_lib() -> Optional[ctypes.CDLL]:
+    """The library for a host op with no planner fallback: ``None``
+    inside :func:`disabled`, else built and loaded or raised."""
+    return require() if _enabled else None
+
+
+def grid_subsample(points: np.ndarray, features: Optional[np.ndarray] = None,
+                   labels: Optional[np.ndarray] = None,
+                   cell_size: float = 0.1):
+    """Voxel-grid barycentre pooling (KPConv grid_subsampling): the mean
+    point, the mean features and the majority label of each cell.
+
+    Returns (points (M, 3), features (M, F) or None, labels (M,) or None).
+    """
+    n = points.shape[0]
+    lib = _host_op_lib() if n > 0 else None
+    if lib is None:
+        return _grid_subsample_np(points, features, labels, cell_size)
+    fdim = features.shape[1] if features is not None else 0
+    feat = _f32(features) if features is not None else None
+    lab = _i32(labels) if labels is not None else None
+    out_p = np.empty((n, 3), np.float32)
+    out_f = np.empty((n, fdim), np.float32) if features is not None else None
+    out_l = np.empty((n,), np.int32) if labels is not None else None
+    m = lib.grid_subsample(
+        _p(_f32(points), ctypes.c_float), ctypes.c_int64(n),
+        _p(feat, ctypes.c_float), ctypes.c_int32(fdim), _p(lab),
+        ctypes.c_float(cell_size), _p(out_p, ctypes.c_float),
+        _p(out_f, ctypes.c_float), _p(out_l))
+    return (out_p[:m], out_f[:m] if out_f is not None else None,
+            out_l[:m] if out_l is not None else None)
+
+
+def _grid_subsample_np(points, features, labels, cell_size):
+    """The numpy version of :func:`grid_subsample` (cells in sorted key
+    order, not the library's first-seen order)."""
+    if points.shape[0] == 0:
+        return points, features, labels
+    cells = np.floor(points / cell_size).astype(np.int64)
+    _, inverse, counts = np.unique(cells, axis=0, return_inverse=True,
+                                   return_counts=True)
+    inverse = inverse.reshape(-1)
+    m = counts.shape[0]
+    out_p = np.zeros((m, 3), np.float64)
+    np.add.at(out_p, inverse, points)
+    out_p = (out_p / counts[:, None]).astype(np.float32)
+    out_f = None
+    if features is not None:
+        out_f = np.zeros((m, features.shape[1]), np.float64)
+        np.add.at(out_f, inverse, features)
+        out_f = (out_f / counts[:, None]).astype(np.float32)
+    out_l = None
+    if labels is not None:
+        out_l = np.full(m, -100, np.int32)
+        for j in range(m):
+            vals, cnt = np.unique(labels[inverse == j], return_counts=True)
+            out_l[j] = vals[np.argmax(cnt)]
+    return out_p, out_f, out_l
+
+
+def radius_neighbors(queries: np.ndarray, supports: np.ndarray,
+                     radius: float, max_neighbors: int = 64) -> np.ndarray:
+    """(Nq, max_neighbors) int32 indices of the supports within
+    ``radius`` of each query, -1 padded (KPConv batch_neighbors; the
+    closest are kept on overflow)."""
+    nq, ns = queries.shape[0], supports.shape[0]
+    lib = _host_op_lib()
+    if lib is None:
+        return _radius_neighbors_np(queries, supports, radius, max_neighbors)
+    out = np.empty((nq, max_neighbors), np.int32)
+    lib.radius_neighbors(
+        _p(_f32(queries), ctypes.c_float), ctypes.c_int64(nq),
+        _p(_f32(supports), ctypes.c_float), ctypes.c_int64(ns),
+        ctypes.c_float(radius), ctypes.c_int32(max_neighbors), _p(out))
+    return out
+
+
+def _radius_neighbors_np(queries, supports, radius, max_neighbors):
+    """The scipy version of :func:`radius_neighbors` (its own order)."""
+    from scipy.spatial import cKDTree
+
+    out = np.full((queries.shape[0], max_neighbors), -1, np.int32)
+    tree = cKDTree(supports)
+    for i, idx in enumerate(tree.query_ball_point(queries, radius)):
+        idx = np.asarray(idx, np.int64)
+        if idx.shape[0] > max_neighbors:
+            d = np.linalg.norm(supports[idx] - queries[i], axis=1)
+            idx = idx[np.argsort(d)[:max_neighbors]]
+        out[i, : idx.shape[0]] = idx
+    return out
+
+
+def region_grow(points: np.ndarray, normals: np.ndarray, k: int = 12,
+                max_dist: float = 0.05, max_angle_deg: float = 20.0,
+                min_region: int = 50, cell_size: Optional[float] = None):
+    """Plane-fitting region growing (CGAL shape-detection parity):
+    (region id per point, -1 unassigned; number of regions)."""
+    n = points.shape[0]
+    if cell_size is None:
+        # ~k points per cell on surface-like data
+        extent = float(points.max(0).min() - points.min(0).min() + 1e-6)
+        cell_size = max(extent / max(np.cbrt(n), 1.0) * 2.0, max_dist * 2,
+                        1e-3)
+    lib = _host_op_lib()
+    if lib is None:
+        raise RuntimeError("region_grow has no numpy version: the native "
+                           "library is switched off")
+    out = np.empty(n, np.int32)
+    if n == 0:
+        return out, 0
+    num = lib.region_grow(
+        _p(_f32(points), ctypes.c_float), _p(_f32(normals), ctypes.c_float),
+        ctypes.c_int64(n), ctypes.c_int32(k), ctypes.c_float(max_dist),
+        ctypes.c_float(max_angle_deg), ctypes.c_int32(min_region),
+        ctypes.c_float(cell_size), _p(out))
+    return out, int(num)

@@ -48,6 +48,23 @@ def test_load_config_matches_reference(name):
     _same(load_config(path, seed=3), ref_load_config(path, seed=3))
 
 
+@pytest.mark.parametrize("remat", [True, False])
+def test_engine_remat_key_reaches_the_encoder(remat, tmp_path):
+    """``engine.remat`` in a YAML is read (not skipped) and builds an
+    encoder that recomputes its body, as the reference's does."""
+    with open(os.path.join(REPO, "configs", "smoke_cpu.yaml")) as f:
+        text = f.read()
+    key = "engine: {max_points: 16384, min_level_capacity: 512}"
+    assert key in text
+    path = tmp_path / "remat.yaml"
+    path.write_text(text.replace(
+        key, key[:-1] + f", remat: {str(remat).lower()}}}"))
+    cfg, ref = load_config(str(path)), ref_load_config(str(path))
+    assert cfg.engine.remat is remat and ref.engine.remat is remat
+    _same(cfg, ref)
+    assert build_model(cfg, device="cpu").pc_encoder.remat is remat
+
+
 
 
 def _name(path):
