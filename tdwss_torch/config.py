@@ -79,7 +79,12 @@ class EngineConfig:
     level_capacity_schedule: Optional[List[int]] = None
     min_level_capacity: int = 2048
     compute_dtype: str = "float32"   # "bfloat16" for the bench config
-    remat: bool = False              # recompute the encoder body in backward
+    # Recompute the encoder body in the backward, one segment as the
+    # reference's nn.remat.  It saves no memory: the bench UNet's step
+    # peaked at 8.583-8.585 GiB with it, 8.586-8.588 without (NVIDIA H100
+    # 80GB HBM3, 700 W; chip_smoke.py's remat phase), at 14-83% more time
+    # per step.
+    remat: bool = False
     host_plans: bool = True          # rulebooks are built on the host
     slim_device_plans: bool = True   # narrow rb_local dtypes, drop dead leaves
     collate_workers: int = 4         # host collate/plan threads

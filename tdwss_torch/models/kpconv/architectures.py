@@ -18,7 +18,7 @@ one (:func:`tdwss_torch.convert.flax_to_state_dict`).
 from __future__ import annotations
 
 import collections
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -29,6 +29,7 @@ from tdwss_torch.models.kpconv.blocks import (KPBatch, UnaryBlock,
                                               block_decider, block_out_dim)
 from tdwss_torch.models.kpconv.config import KPConvConfig
 from tdwss_torch.models.kpconv.ops import p2p_fitting_regularizer
+from tdwss_torch.models.layers import acc_dtype
 
 
 def _plan_blocks(cfg: KPConvConfig):
@@ -149,10 +150,10 @@ def kpfcnn_loss(logits: torch.Tensor, labels: torch.Tensor, auxes: List,
     fitting regularizer."""
     valid = labels >= 0
     safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
-    logp = F.log_softmax(logits.float(), dim=-1)
+    logp = F.log_softmax(logits.to(acc_dtype(logits.dtype)), dim=-1)
     nll = -torch.take_along_dim(logp, safe[:, None], dim=1)[:, 0]
     if cfg.class_w:
-        w = torch.tensor(cfg.class_w, dtype=torch.float32,
+        w = torch.tensor(cfg.class_w, dtype=logp.dtype,
                          device=logits.device)[safe]
         nll = nll * w
         denom = torch.sum(torch.where(valid, w, torch.zeros_like(w)))
@@ -178,16 +179,14 @@ def deform_param_labels(model: nn.Module) -> Dict[str, str]:
             for name, _ in model.named_parameters()}
 
 
-def param_groups(model: nn.Module, lr: float,
-                 deform_lr_factor: Optional[float] = None) -> List[Dict]:
+def param_groups(model: nn.Module, lr: float) -> List[Dict]:
     """The two Adam parameter groups of the labels: 'main' at ``lr``,
-    'deform' at ``lr * deform_lr_factor`` (the model config's when not
-    given).  An empty group is left out."""
-    if deform_lr_factor is None:
-        deform_lr_factor = model.config.deform_lr_factor
+    'deform' at ``lr * model.config.deform_lr_factor``.  An empty group
+    is left out."""
     labels = deform_param_labels(model)
     groups = []
-    for label, group_lr in (("main", lr), ("deform", lr * deform_lr_factor)):
+    for label, group_lr in (("main", lr),
+                            ("deform", lr * model.config.deform_lr_factor)):
         params = [p for n, p in model.named_parameters()
                   if labels[n] == label]
         if params:

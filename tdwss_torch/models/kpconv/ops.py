@@ -13,7 +13,9 @@ The arithmetic follows the reference's order: squared point-to-kernel
 distances by the expansion ``|a|^2 + |b|^2 - 2ab`` (shadow terms are
 ~1e12; a direct difference rounds otherwise), the influence-weighted
 aggregation as a batched (K, nmax) x (nmax, Cin) product per point, and
-the kernel weights as one (N, K*Cin) x (K*Cin, Cout) product.  The
+the kernel weights as one (N, K*Cin) x (K*Cin, Cout) product.  Where the
+reference casts to f32, the port takes ``acc_dtype``: f32 for f32 and
+bf16 inputs, f64 for f64 ones (a dtype the reference never runs).  The
 deformable path computes the masked full width, as the reference does
 (no ``new_max_neighb`` top-k repacking).
 """
@@ -24,6 +26,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from tdwss_torch.models.layers import acc_dtype
 
 SHADOW_COORD = 1e6
 
@@ -63,8 +67,8 @@ def _sq_distances(rel: torch.Tensor, kp: torch.Tensor) -> torch.Tensor:
 
     rel: (N, n, 3) centred neighbours; kp: (K, 3) or (N, K, 3).
     """
-    rel32 = rel.float()
-    kp32 = kp.float()
+    rel32 = rel.to(acc_dtype(rel.dtype))
+    kp32 = kp.to(rel32.dtype)
     r2 = torch.sum(rel32 * rel32, dim=-1)                    # (N, n)
     k2 = torch.sum(kp32 * kp32, dim=-1)                      # (K,) or (N, K)
     if kp.dim() == 2:
@@ -135,15 +139,15 @@ def kpconv_apply(
     all_weights = kp_influences(sq, kp_extent, influence, aggregation)
     neighb_x = gather_feats(x, neighb_inds)                  # (N, n, Cin)
 
-    cdt = x.dtype
-    weighted = torch.einsum("vkn,vnc->vkc", all_weights.to(cdt).float(),
-                            neighb_x.float())                # (N, K, Cin)
+    cdt, acc = x.dtype, acc_dtype(x.dtype)
+    weighted = torch.einsum("vkn,vnc->vkc", all_weights.to(cdt).to(acc),
+                            neighb_x.to(acc))                # (N, K, Cin)
     if modulations is not None:
         weighted = weighted * modulations[:, :, None]
 
     k, cin, cout = weights.shape
-    out = (weighted.reshape(-1, k * cin).to(cdt).float()
-           @ weights.reshape(k * cin, cout).to(cdt).float())
+    out = (weighted.reshape(-1, k * cin).to(cdt).to(acc)
+           @ weights.reshape(k * cin, cout).to(cdt).to(acc))
     return out.to(cdt), aux
 
 
@@ -163,13 +167,14 @@ def global_average(x: torch.Tensor, batch_ids: torch.Tensor,
     """Per-cloud mean over the valid rows."""
     ids = torch.where(valid, batch_ids.long(),
                       torch.full_like(batch_ids.long(), num_scenes))
-    summed = torch.zeros((num_scenes + 1, x.shape[-1]), dtype=torch.float32,
-                         device=x.device).index_add(0, ids, x.float())
+    acc = acc_dtype(x.dtype)
+    summed = torch.zeros((num_scenes + 1, x.shape[-1]), dtype=acc,
+                         device=x.device).index_add(0, ids, x.to(acc))
     counts = torch.zeros((num_scenes + 1,), dtype=torch.int64,
                          device=x.device).index_add(
         0, ids, torch.ones_like(ids))
     mean = summed[:num_scenes] / torch.clamp(counts[:num_scenes], min=1
-                                             )[:, None].float()
+                                             )[:, None].to(acc)
     return mean.to(x.dtype)
 
 

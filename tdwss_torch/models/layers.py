@@ -31,6 +31,14 @@ from tdwss_torch.ops.sparse_conv import (deconv_apply, strided_conv_apply,
 _state = threading.local()
 
 
+def acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype that sums and products over ``dtype`` operands take:
+    f32 for bf16 and f32 (the reference's ``preferred_element_type``),
+    f64 for f64, so that an f64 step (the yardstick of
+    ``tdwss_torch.tools.kpconv_grads``) is f64 all through."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 @contextlib.contextmanager
 def recomputing():
     """Mark a checkpointed forward's recomputation in the backward (on
@@ -142,16 +150,17 @@ class MaskedBatchNorm(nn.Module):
         if use_running_average:
             mean, var = self.running_mean, self.running_var
         else:
-            m = valid.to(torch.float32)
+            m = valid.to(acc_dtype(feats.dtype))
             count = torch.clamp(m.sum(), min=1.0)
-            xf = feats.float() * m[:, None]
+            xf = feats.to(m.dtype) * m[:, None]
             mean = xf.sum(0) / count
             var = torch.clamp((xf * xf).sum(0) / count - mean * mean,
                               min=0.0)
             if not getattr(_state, "recomputing", False):
                 self._update_running(mean, var, count)
         inv = torch.rsqrt(var + self.eps) * self.weight
-        out = ((feats.float() - mean) * inv + self.bias).to(feats.dtype)
+        out = ((feats.to(acc_dtype(feats.dtype)) - mean) * inv
+               + self.bias).to(feats.dtype)
         return torch.where(valid[:, None], out, torch.zeros_like(out))
 
     def _update_running(self, mean, var, count):

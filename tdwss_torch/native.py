@@ -1,7 +1,7 @@
 """ctypes binding to the framework-free C++ host planner.
 
 The port compiles ``native/tdwss_native.cpp`` itself, with portable flags
-(no ``-march=native``), into ``build/tdwss_torch/`` under a name keyed by
+(no ``-march=native``; ``-mfma`` where the host has it), into ``build/tdwss_torch/`` under a name keyed by
 the source's hash, and never loads ``native/libtdwss_native.so``: that
 file is untracked and may have been built for another host's CPU.
 
@@ -40,7 +40,13 @@ def _fma_flags():
     library builds with ``-march=native``, which contracts
     ``radius_neighbors``' squared distances into FMAs; without the same
     contraction, neighbours whose distances differ in the last bit come
-    out in another order when a row overflows."""
+    out in another order when a row overflows.
+
+    Not ``-march=native`` itself: the library's file name is keyed on
+    the source and the flags, and ``-march=native`` reads the same on
+    every host, so a ``build/`` carried with a checkout to another CPU
+    would load code built for the first one.  ``-mfma``, the part of it
+    that changes a result, enters the key only where the host has it."""
     if platform.machine() not in ("x86_64", "AMD64"):
         return []
     try:

@@ -28,6 +28,10 @@ whose block names must walk flax's automatic naming exactly.
   above, then the port's Adam on the reference's gradient against
   optax's update (|d| <= 1e-4 * lr + 1e-6 * |p|: the two compute
   Adam's update with other roundings, measured 6.6e-6 * lr).
+- ``tools.kpconv_grads``: recording and replaying a step's selections
+  give the step back bit for bit, with no flip; the backward-only fault
+  leaves the forward bit for bit and moves the gradients by more than
+  1e-2 of a tensor's norm.
 """
 
 import jax
@@ -47,6 +51,9 @@ from tdwss_torch.convert import flax_to_state_dict, state_dict_to_flax
 from tdwss_torch.models.kpconv import (KPFCNN, KPConvConfig,
                                        deform_param_labels, kpfcnn_loss,
                                        param_groups, segmentation_inputs)
+from tdwss_torch.tools.kpconv_grads import (Selections, grad_errors,
+                                            row0_takes_no_gradient,
+                                            step_outputs)
 
 TOL = 1e-5
 STATS_TOL = 1e-4
@@ -232,3 +239,24 @@ def test_three_adam_steps_with_the_deform_group(setup):
             np.testing.assert_allclose(p.detach().numpy(), want_p[n],
                                        rtol=1e-6, atol=1e-4 * LR,
                                        err_msg=n)
+
+
+def test_grads_tool_replay_and_backward_fault(setup):
+    """``tools.kpconv_grads``, which the KPConv chip phase's limits rest
+    on: recording a step's selections leaves the step as it is,
+    replaying them gives it back with no flip, and the backward-only
+    fault leaves the forward as it is and moves the gradients."""
+    cfg, b = setup["cfg"], setup["exact"]
+    plain = step_outputs(cfg, b, "cpu", torch.float32)
+    tape = Selections()
+    recorded = step_outputs(cfg, b, "cpu", torch.float32, selections=tape)
+    replay = Selections(replay=tape)
+    replayed = step_outputs(cfg, b, "cpu", torch.float32, selections=replay)
+    assert sum(replay.entries.values()) > 0 and not +replay.flips
+    for run in (recorded, replayed):
+        assert torch.equal(run[0], plain[0]) and run[1] == plain[1]
+        assert grad_errors(run[2], plain[2])[0][0] == 0.0
+    fault = step_outputs(cfg, b, "cpu", torch.float32,
+                         take=row0_takes_no_gradient)
+    assert torch.equal(fault[0], plain[0]) and fault[1] == plain[1]
+    assert grad_errors(fault[2], plain[2])[0][0] > 1e-2

@@ -20,6 +20,9 @@
   ``global_average`` and ``p2p_fitting_regularizer`` values and
   gradients.  Tolerance: |d| <= 1e-5 * max|ref| + 1e-5 * |ref| (the same
   f32 products summed in another order).
+- Ops, f64 (a dtype the reference never runs): ``kpconv_apply`` against
+  a direct numpy f64 computation at 1e-12, so no part of it drops to
+  f32.
 """
 
 import jax
@@ -251,6 +254,45 @@ def test_kpconv_apply_matches_reference(influence, aggregation, variant):
     if variant != "rigid" and influence == "linear":
         # the reference's sqrt at an exact zero gives NaN offset gradients
         assert np.isnan(np.asarray(want_g[names.index("offsets")])).any()
+
+
+def _np_kpconv(a, kp_extent, influence):
+    """``kpconv_apply`` computed directly in numpy f64: the distances as
+    differences, not the expansion, shadows appended as rows."""
+    f64 = np.float64
+    s = np.concatenate([a["s"], np.full((1, 3), ops.SHADOW_COORD)]).astype(f64)
+    x = np.concatenate([a["x"], np.zeros((1, a["x"].shape[1]))]).astype(f64)
+    inds = np.where(a["inds"] < a["s"].shape[0], a["inds"], a["s"].shape[0])
+    rel = s[inds] - a["q"].astype(f64)[:, None]                  # (N, n, 3)
+    kp = a["kp"].astype(f64)[None] + a.get("offsets", np.zeros(1)).astype(f64)
+    d2 = ((rel[:, :, None] - kp[:, None]) ** 2).sum(-1)          # (N, n, K)
+    if influence == "linear":
+        w = np.maximum(1.0 - np.sqrt(d2) / kp_extent, 0.0)
+    else:
+        w = np.exp(-d2 / (2.0 * (kp_extent * 0.3) ** 2 + 1e-9))
+    weighted = np.einsum("vnk,vnc->vkc", w, x[inds])
+    if "modulations" in a:
+        weighted = weighted * a["modulations"].astype(f64)[:, :, None]
+    return np.einsum("vkc,kco->vo", weighted, a["w"].astype(f64))
+
+
+@pytest.mark.parametrize("variant", ["rigid", "offsets", "modulated"])
+@pytest.mark.parametrize("influence", ["linear", "gaussian"])
+def test_kpconv_apply_f64_is_f64_all_through(influence, variant):
+    """In f64 (the yardstick of ``tools.kpconv_grads``; a dtype the
+    reference never runs) the distances, influences and products stay
+    f64: the output equals a direct numpy f64 computation at 1e-12."""
+    a = _op_inputs(8, variant != "rigid", variant == "modulated")
+    t = {n: torch.from_numpy(v).double() if n != "inds"
+         else torch.from_numpy(v) for n, v in a.items()}
+    out, _ = ops.kpconv_apply(
+        t["q"], t["s"], t["inds"], t["x"], t["kp"], t["w"], kp_extent=0.6,
+        influence=influence, offsets=t.get("offsets"),
+        modulations=t.get("modulations"))
+    assert out.dtype == torch.float64
+    want = _np_kpconv(a, 0.6, influence)
+    np.testing.assert_allclose(out.numpy(), want, rtol=1e-12,
+                               atol=1e-12 * np.abs(want).max())
 
 
 def test_gather_never_wraps():
