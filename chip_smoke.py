@@ -20,8 +20,10 @@ the weak-supervision loop through the port's entry points (``Trainer``,
 the pseudo-label stage, ``FullySupervised`` and the train CLI) at
 SparseConvFCNet's width, trains the 4-chip config data-parallel on 4
 ranks that share the card, runs the bench UNet without host plans
-(on-device voxelization and rulebooks) and with ``engine.remat``, and
-trains the KPConv backbone (KPFCNN) at its full width, and checks them:
+(on-device voxelization and rulebooks) and with ``engine.remat``,
+trains the KPConv backbone (KPFCNN) at its full width, and runs the
+offline tools (GSS proposals, boxes in the train batch, the projector,
+``Box2Mask`` and the pseudo-image mask pipeline), and checks them:
 
 1. device: the card's name and power limit, torch and CUDA versions;
 2. build: the kernels' four shared libraries (nvcc: forward K1/K4,
@@ -181,10 +183,30 @@ trains the KPConv backbone (KPFCNN) at its full width, and checks them:
     neighbour read as row 0) caught, 3 Adam steps with the deform group
     (CUDA events, peak memory, the loss falling, every parameter moved)
     and no synchronising call in a warm step;
-17. one JSON line with the numbers of every ported kernel (K1-K7, each
+17. offline tools: GSS proposals (``gss.generate_proposals`` on the
+    native library) for one scene at its full point count, with the
+    seconds of normals, region growing, merging and NMS, the boxes
+    finite and no two kept boxes over IoU 0.75, written as
+    ``<scene>_prop.npy`` (that scene's boxes stand for the others);
+    the scenes loaded with ``with_boxes: true, max_boxes: 64`` through
+    the port's dataset and ``train_collate`` and moved to the card; the
+    bench UNet's eval forward on that batch through the kernels (K1's
+    launches equal to the plans' routing) and ``project_from_batch`` on
+    its per-point logits (20 channels -> Matting -> 2, resolution 256,
+    views HWZ): the views and the gradient of their sum with respect to
+    the Matting weights and the logits against the same call on the CPU
+    with the same weights (views 1e-5 of max|cpu|, gradients 1e-4 of
+    each tensor's max), and a planted fault on the card side (the crop
+    without ``rot_inv``) caught; ``Box2Mask`` on that scene's points,
+    logits and corner boxes (3 views, resolution 256, radius 4, nsample
+    3) and ``run_mask_pipeline`` on 8 synthetic 256x256 images, each
+    against the CPU (ball-query indices equal, or each flip a distance
+    within a few ulps of the radius and the masks held with the CPU's
+    indices; masks within 1e-5); ms and peak memory of each;
+18. one JSON line with the numbers of every ported kernel (K1-K7, each
     with its launches over the main paths, the loop, the brick path and
-    the DP, plans-free and remat paths, 0 included), the card line from
-    ``nvidia-smi``, and the result line.
+    the DP, plans-free, remat and offline paths, 0 included), the card
+    line from ``nvidia-smi``, and the result line.
 
 Any failure raises and the exit code is not 0.  Without CUDA, or without
 the rest of the repository beside this file, it exits non-zero and prints
@@ -3468,6 +3490,443 @@ def phase_remat(scenes, device):
     return on["launches"]
 
 
+OFFLINE_RES = 256
+OFFLINE_MAX_BOXES = 64             # pointcloud_data.max_boxes
+OFFLINE_CENTER = (0.25, -0.5, 0.1)  # the prep 'center' stored with the scenes
+GSS_IOU = 0.75                     # generate_proposals' NMS threshold
+PROJ_VIEWS_TOL = 1e-5              # of max|cpu views|
+PROJ_GRAD_TOL = 1e-4               # of each CPU gradient's max
+MASK_TOL = 1e-5                    # of max|cpu mask|
+MASK_IMAGES = 8
+BOX_VIEWS = 3
+BOX_RADIUS, BOX_NSAMPLE = 4.0, 3
+BOX_CPU_POINTS = 12_000            # points of the boxes held against the CPU
+FLIP_ULPS = 8                      # a flipped pair's |d2 - r^2| in ulps of r^2
+
+
+def _rel_err(got, want):
+    """max|got - want| / max|want| over two tensors (any devices)."""
+    import torch
+
+    g = got.detach().to("cpu", torch.float64)
+    w = want.detach().to("cpu", torch.float64)
+    return ((g - w).abs().max() / w.abs().max().clamp_min(1e-30)).item()
+
+
+def synthetic_images(n, size, seed):
+    """``n`` white ``size``x``size`` images, each with one filled shape
+    (a disc, a rectangle or a triangle) of a random dark colour."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    imgs = np.full((n, size, size, 3), 255, np.uint8)
+    yy, xx = np.mgrid[:size, :size]
+    for i in range(n):
+        cy, cx = rng.integers(size // 3, 2 * size // 3, 2)
+        r = int(rng.integers(size // 10, size // 4))
+        if i % 3 == 0:
+            shape = (yy - cy) ** 2 + (xx - cx) ** 2 < r * r
+        elif i % 3 == 1:
+            shape = (abs(yy - cy) < r) & (abs(xx - cx) < 0.6 * r)
+        else:
+            shape = ((yy > cy - r) & (yy < cy + r)
+                     & (abs(xx - cx) < (yy - cy + r) / 2))
+        imgs[i][shape] = rng.integers(0, 200, 3)
+    return imgs
+
+
+def check_neighbours(label, card_in, cpu_in, res, radius, nsample, device):
+    """The ball queries of one render's inputs, (coords (B, N, 2), feats
+    (B, N, C), points_num (B,)) as each side made them, on the card and on
+    the CPU: the rows whose indices differ, each explained by a flipped
+    (pixel, support) pair whose squared distance lies within FLIP_ULPS
+    ulps of radius**2 on either side.  Returns (card masks with the CPU's
+    indices, CPU masks, the flipped rows as a (B, H * W) bool array)."""
+    import numpy as np
+    import torch
+
+    from tdwss_torch.ops.point2mask import (canvas_coords,
+                                            masks_from_neighbours,
+                                            neighbours, pixel_samples)
+
+    sides = {}
+    for dev, (crds, fts, pn) in ((device, card_in), ("cpu", cpu_in)):
+        c = torch.from_numpy(np.ascontiguousarray(crds, np.float32)).to(dev)
+        n = torch.from_numpy(np.asarray(pn)).to(dev)
+        sides[str(dev)] = (c, n, neighbours(c, res, n, radius, nsample),
+                           torch.from_numpy(np.ascontiguousarray(
+                               fts, np.float32)).to(dev))
+    card, cpu = sides[str(device)], sides["cpu"]
+    idx_card, idx_cpu = card[2].cpu().numpy(), cpu[2].numpy()
+    rows = (idx_card != idx_cpu).any(-1)
+    r2 = np.float32(radius * radius)
+    ulp = np.spacing(r2)
+    samples = pixel_samples(res, "cpu").numpy()
+    worst, pairs = 0.0, 0
+    for b, p in np.argwhere(rows):
+        d2 = {}
+        for key, side in (("card", card), ("cpu", cpu)):
+            canvas = canvas_coords(side[0][b:b + 1], res)[0].cpu().numpy()
+            dx = samples[p, 0] - canvas[:, 0]
+            dy = (samples[p, 1] - canvas[:, 1]).astype(np.float64)
+            d2[key] = (dy * dy + (dx * dx).astype(np.float64)).astype(
+                np.float32)
+        live = np.arange(canvas.shape[0]) < int(cpu[1][b])
+        flips = live & ((d2["card"] <= r2) != (d2["cpu"] <= r2))
+        if not flips.any():
+            raise AssertionError(f"{label}: the indices of row ({b}, {p}) "
+                                 f"differ with no flipped pair")
+        off = np.abs(np.concatenate([d2["card"][flips], d2["cpu"][flips]])
+                     - r2) / ulp
+        worst, pairs = max(worst, float(off.max())), pairs + int(flips.sum())
+    log(f"{label}: ball queries card vs CPU: {int(rows.sum())} of "
+        f"{rows.size} rows differ, {pairs} flipped (pixel, support) pairs, "
+        f"each within {worst:.1f} ulps of radius**2 = {float(r2)} (limit "
+        f"{FLIP_ULPS})")
+    if worst > FLIP_ULPS:
+        raise AssertionError(f"{label}: a flipped pair lies {worst} ulps "
+                             f"from the radius")
+    replay = masks_from_neighbours(torch.from_numpy(idx_cpu).to(device),
+                                   card[3], res)
+    return replay, masks_from_neighbours(cpu[2], cpu[3], res), rows
+
+
+def phase_offline(scenes, device):
+    """GSS proposals, the box collate, the projector on the bench UNet's
+    logits, ``Box2Mask`` and the pseudo-image mask pipeline, each against
+    the CPU (see the module docstring, item 17).  Returns the launches of
+    the eval forward."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from tdwss_torch import gss, native
+    from tdwss_torch.convert import flax_to_state_dict
+    from tdwss_torch.data.collate import train_collate
+    from tdwss_torch.data.dataset import load_processed_dir
+    from tdwss_torch.data.plans import attach_host_plans
+    from tdwss_torch.engine.steps import eval_step
+    from tdwss_torch.gss.eval import center_extent_to_corners
+    from tdwss_torch.gss.search import _box_iou_3d
+    from tdwss_torch.models.meta_arch import build_model
+    from tdwss_torch.models.projector import (Projector, crop_rows,
+                                              project_from_batch)
+    from tdwss_torch.ops import windowed as W
+    from tdwss_torch.ops.host_plan import reset_sticky_plans
+    from tdwss_torch.ops.point2mask import (Box2Mask, Pixel2Mask,
+                                            point2mask_module, render_inputs)
+    from tdwss_torch.ops.pseudo_images import (PseudoImageConfig,
+                                               extract_mask, filter_images,
+                                               run_mask_pipeline)
+
+    # 1. GSS on the first scene at its full point count
+    native.require()
+    timings = {}
+    t = time.perf_counter()
+    boxes = gss.generate_proposals(scenes[0].points,
+                                   rng=np.random.default_rng(0),
+                                   timings=timings)
+    gss_s = time.perf_counter() - t
+    iou = _box_iou_3d(boxes, boxes)
+    np.fill_diagonal(iou, 0.0)
+    log(f"offline: GSS on {scenes[0].name} ({scenes[0].points.shape[0]} "
+        f"points) in {gss_s:.3f} s: normals {timings['normals']:.3f} s, "
+        f"region growing {timings['region_grow']:.3f} s "
+        f"({timings['regions']} regions), merging {timings['merge']:.3f} s "
+        f"({timings['merged']} merged regions), boxes and NMS "
+        f"{timings['nms']:.3f} s; {boxes.shape[0]} proposals, largest IoU "
+        f"between two kept boxes {float(iou.max()):.4f} (limit {GSS_IOU})")
+    if (boxes.shape[0] < 2 or not np.isfinite(boxes).all()
+            or (boxes[:, 3:6] < 0).any()):
+        raise AssertionError(f"offline: bad GSS boxes {boxes.shape}")
+    if iou.max() > GSS_IOU:
+        raise AssertionError("offline: two kept GSS boxes overlap beyond "
+                             "the NMS threshold")
+
+    # 2. the scenes and their boxes through the dataset and the collate
+    cfg = bench_config()
+    cfg.pointcloud_data.with_boxes = True
+    cfg.pointcloud_data.max_boxes = OFFLINE_MAX_BOXES
+    center = np.asarray(OFFLINE_CENTER, np.float32)
+    work = tempfile.mkdtemp(prefix="chip_smoke_offline_")
+    try:
+        data_dir = os.path.join(work, "train_processed")
+        box_dir = os.path.join(work, "proposals")
+        os.makedirs(data_dir)
+        os.makedirs(box_dir)
+        for s in scenes:
+            np.savez(os.path.join(data_dir, f"{s.name}.npz"),
+                     points=s.points - center, colors=s.colors,
+                     labels=s.labels, center=center)
+            np.save(os.path.join(box_dir, f"{s.name}_prop.npy"), boxes)
+        loaded = load_processed_dir(data_dir, box_path=box_dir)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"offline: {len(loaded)} scenes written as .npz (points less the "
+        f"center {OFFLINE_CENTER}) with {scenes[0].name}'s proposals as "
+        f"every scene's (GSS runs on one scene only, to keep the phase "
+        f"short), loaded with with_boxes, max_boxes {OFFLINE_MAX_BOXES}")
+    reset_sticky_plans()
+    t = time.perf_counter()
+    host = attach_host_plans(train_collate(loaded, cfg,
+                                           np.random.default_rng(0)), cfg)
+    host_s = time.perf_counter() - t
+    b = host.to(device)
+    if b.box is None or b.box.boxes.device.type != torch.device(device).type:
+        raise AssertionError("offline: the batch lost its boxes on the way "
+                             "to the card")
+    n_boxes = int(host.box.valid.sum())
+    log(f"offline: train batch with boxes (collate + plans) {host_s:.3f} "
+        f"s; {n_boxes} valid boxes of {host.box.valid.size}")
+
+    # 3. the bench UNet's eval forward, then the projector
+    model = build_model(cfg, seed=0, device=device)
+    W.reset_launches()
+    logits = eval_step(model, b)
+    torch.cuda.synchronize()
+    launches = dict(W.launches)
+    check_bodies("offline forward")
+    want = expected_launches(model, host.plans, train=False)
+    log(f"offline: launches in the eval forward {launches}; routed by the "
+        f"plans {want}")
+    if launches != want or not launches[W.K1]:
+        raise AssertionError("offline: the forward's launches differ from "
+                             "the plans' routing")
+    del model
+    rng = np.random.default_rng(0)
+    weights = flax_to_state_dict({"matting": {"model": {
+        "kernel": (rng.normal(size=(20, 2)) * 0.3).astype(np.float32),
+        "bias": rng.normal(size=2).astype(np.float32)}}})
+
+    def projector(dev):
+        proj = Projector(20, 2, OFFLINE_RES, "HWZ", device=dev)
+        proj.load_state_dict(weights)
+        return proj
+
+    def project(dev, batch, feats):
+        proj = projector(dev)
+        f = feats.detach().to(dev).requires_grad_(True)
+        views = project_from_batch(batch, f, proj)
+        views.sum().backward()
+        m = proj.matting.model
+        return views.detach(), {"Matting weight": m.weight.grad,
+                                "Matting bias": m.bias.grad,
+                                "point logits": f.grad}
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    views, grads = project(device, b, logits)
+    torch.cuda.synchronize()
+    proj_ms = (time.perf_counter() - t) * 1e3
+    proj_peak = torch.cuda.max_memory_allocated() / 2**30
+    t = time.perf_counter()
+    cpu_views, cpu_grads = project("cpu", host, logits.cpu())
+    cpu_ms = (time.perf_counter() - t) * 1e3
+    m_views = 3 * n_boxes
+    if (tuple(views.shape) != (m_views, 2, OFFLINE_RES, OFFLINE_RES)
+            or not torch.isfinite(views).all() or not views.abs().sum()):
+        raise AssertionError(f"offline: bad views {tuple(views.shape)}")
+    errs = {"views": _rel_err(views, cpu_views)}
+    errs.update({k: _rel_err(grads[k], cpu_grads[k]) for k in grads})
+    with torch.no_grad():
+        eye = torch.eye(3, dtype=b.box.rot_inv.dtype, device=device)
+        bad = b.replace(box=dataclasses.replace(
+            b.box, rot_inv=eye.expand_as(b.box.rot_inv).contiguous()))
+        bad_err = _rel_err(project_from_batch(bad, logits,
+                                              projector(device)), cpu_views)
+    log(f"offline: project_from_batch ({n_boxes} boxes, resolution "
+        f"{OFFLINE_RES}, views HWZ) forward + backward on the card "
+        f"{proj_ms:.1f} ms (host crop included), peak device memory "
+        f"{proj_peak:.3f} GiB; on the CPU {cpu_ms:.1f} ms; card vs CPU, "
+        f"max|d| / max|cpu|: " + ", ".join(f"{k} {v:.3g}"
+                                            for k, v in errs.items())
+        + f" (limits {PROJ_VIEWS_TOL} views, {PROJ_GRAD_TOL} gradients); "
+        f"planted fault (the crop without rot_inv) {bad_err:.3g}")
+    if errs["views"] > PROJ_VIEWS_TOL or any(
+            v > PROJ_GRAD_TOL for k, v in errs.items() if k != "views"):
+        raise AssertionError("offline: the projector on the card disagrees "
+                             "with the CPU")
+    if not bad_err > PROJ_VIEWS_TOL:
+        raise AssertionError("offline: the planted crop fault was not "
+                             "caught")
+
+    # 4. Box2Mask on the first scene's points, logits and boxes
+    sel = np.nonzero((host.coords[:, 3] == 0) & host.valid)[0]
+    align, centers, rot_inv, offsets = host.box.transform_tuple()
+    pc = (host.coords[sel, :3].astype(np.float64) - offsets[0]) \
+        @ rot_inv[0] + centers[0]
+    xyz = (np.concatenate([pc, np.ones((pc.shape[0], 1))], 1)
+           @ align[0].T)[:, :3].astype(np.float32)[None]
+    feats = logits[torch.from_numpy(sel).to(device)].cpu().numpy()[None]
+    corners = center_extent_to_corners(boxes).astype(np.float32)[None]
+    theta = (np.arange(BOX_VIEWS) * 2 * np.pi / BOX_VIEWS).astype(np.float32)
+    phi = np.full(BOX_VIEWS, 0.35, np.float32)
+    fronts = {str(dev): Box2Mask(radius=BOX_RADIUS, nsample=BOX_NSAMPLE,
+                                 device=dev) for dev in (device, "cpu")}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    masks = fronts[str(device)](xyz, feats, corners, OFFLINE_RES, theta, phi)
+    torch.cuda.synchronize()
+    box_ms = (time.perf_counter() - t) * 1e3
+    box_peak = torch.cuda.max_memory_allocated() / 2**30
+    if not torch.isfinite(masks).all() or masks.shape[1:] != (
+            3, OFFLINE_RES, OFFLINE_RES):
+        raise AssertionError(f"offline: bad Box2Mask masks "
+                             f"{tuple(masks.shape)}")
+    # The CPU's ball query scans (pixels x points in reach) pairs, minutes
+    # for every box of the scene: the boxes are held against the CPU in
+    # proposal order up to BOX_CPU_POINTS points in all.
+    inside = [int((np.all(xyz[0] <= c[3:6], -1)
+                   & np.all(xyz[0] >= c[:3], -1)).sum())
+              for c in corners[0]]
+    held, total = [], 0
+    for i, n in enumerate(inside):
+        if n and total + n <= BOX_CPU_POINTS:
+            held.append(i)
+            total += n
+    sub = corners[:, held]
+    t = time.perf_counter()
+    sub_masks = fronts[str(device)](xyz, feats, sub, OFFLINE_RES, theta, phi)
+    torch.cuda.synchronize()
+    sub_ms = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    cpu_masks = fronts["cpu"](xyz, feats, sub, OFFLINE_RES, theta, phi)
+    box_cpu_ms = (time.perf_counter() - t) * 1e3
+    inputs = {k: render_inputs(*f.instances(xyz, feats, sub, theta,
+                                            phi)[0], BOX_VIEWS)
+              for k, f in fronts.items()}
+    res = (OFFLINE_RES, OFFLINE_RES)
+    replay, cpu_raw, flipped = check_neighbours(
+        "offline Box2Mask", inputs[str(device)], inputs["cpu"], res,
+        BOX_RADIUS, BOX_NSAMPLE, device)
+    keep = torch.from_numpy(
+        ~flipped.reshape(flipped.shape[0], *res))[:, None]
+    box_err = _rel_err(sub_masks.cpu() * keep, cpu_masks * keep)
+    replay_err = _rel_err(replay, cpu_raw)
+    log(f"offline: Box2Mask ({xyz.shape[1]} points, {corners.shape[1]} "
+        f"boxes holding {sorted(inside)} points, {masks.shape[0]} masks of "
+        f"{OFFLINE_RES}x{OFFLINE_RES}, radius {BOX_RADIUS}, nsample "
+        f"{BOX_NSAMPLE}) on the card {box_ms:.1f} ms (host crops "
+        f"included), peak device memory {box_peak:.3f} GiB; boxes {held} "
+        f"({total} points) on the card {sub_ms:.1f} ms, on the CPU "
+        f"{box_cpu_ms:.1f} ms; their masks card vs CPU outside the flipped "
+        f"rows {box_err:.3g}, with the CPU's indices {replay_err:.3g} "
+        f"(limit {MASK_TOL})")
+    if (len(held) < 2 or sub_masks.shape != cpu_masks.shape
+            or box_err > MASK_TOL or replay_err > MASK_TOL):
+        raise AssertionError("offline: Box2Mask on the card disagrees with "
+                             "the CPU")
+
+    # 5. the pseudo-image mask pipeline
+    pcfg = PseudoImageConfig()
+    images = synthetic_images(MASK_IMAGES, pcfg.resolution, seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    kept, blurred = run_mask_pipeline(images, pcfg, device=device)
+    torch.cuda.synchronize()
+    pipe_ms = (time.perf_counter() - t) * 1e3
+    pipe_peak = torch.cuda.max_memory_allocated() / 2**30
+    t = time.perf_counter()
+    cpu_kept, cpu_blurred = run_mask_pipeline(images, pcfg, device="cpu")
+    pipe_cpu_ms = (time.perf_counter() - t) * 1e3
+    passed = filter_images(images, pcfg)
+    raw = np.stack([extract_mask(images[i], pcfg.white_threshold)
+                    for i in passed])
+    raw[raw < 127] = 0
+    raw[raw >= 128] = 255
+    pix = Pixel2Mask(radius=pcfg.blur_radius, nsample=pcfg.blur_samples,
+                     device="cpu").inputs(raw)
+    replay, cpu_raw, flipped = check_neighbours(
+        "offline mask pipeline", pix, pix, (pcfg.resolution,) * 2,
+        pcfg.blur_radius, pcfg.blur_samples, device)
+    same_kept = np.array_equal(kept, cpu_kept)
+    pipe_err = math.inf
+    if same_kept and len(kept):
+        keep = torch.from_numpy(~flipped[np.isin(passed, kept)].reshape(
+            len(kept), pcfg.resolution, pcfg.resolution))[..., None]
+        pipe_err = _rel_err(torch.from_numpy(blurred) * keep,
+                            torch.from_numpy(cpu_blurred) * keep)
+    replay_err = _rel_err(replay, cpu_raw)
+    log(f"offline: run_mask_pipeline ({MASK_IMAGES} images of "
+        f"{pcfg.resolution}x{pcfg.resolution}, blur radius "
+        f"{pcfg.blur_radius}, {pcfg.blur_samples} samples) on the card "
+        f"{pipe_ms:.1f} ms, peak device memory {pipe_peak:.3f} GiB; on the "
+        f"CPU {pipe_cpu_ms:.1f} ms; kept {len(kept)} images, the same as "
+        f"the CPU: {same_kept}; masks card vs CPU outside the flipped rows "
+        f"{pipe_err:.3g}, with the CPU's indices {replay_err:.3g} (limit "
+        f"{MASK_TOL})")
+    if (not same_kept or len(kept) == 0 or pipe_err > MASK_TOL
+            or replay_err > MASK_TOL):
+        raise AssertionError("offline: the mask pipeline on the card "
+                             "disagrees with the CPU")
+
+    # 6. each tool's host part (host clock) and device part (CUDA events,
+    # on inputs already on the card) apart
+    def device_ms(fn):
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        fn()
+        ev[1].record()
+        ev[1].synchronize()
+        return ev[0].elapsed_time(ev[1])
+
+    def on_card(a, dtype=None):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                               device=device)
+
+    rows_valid = np.nonzero(host.valid)[0]
+    t = time.perf_counter()
+    crop, rows = crop_rows(host.coords[rows_valid], host.box.concat_boxes(),
+                           host.box.transform_tuple())
+    crop_s = time.perf_counter() - t
+    proj = projector(device)
+    crop_t, idx_t = on_card(crop), on_card(rows_valid[rows])
+    ones = torch.ones(crop.shape[0], dtype=torch.bool, device=device)
+    proj_dev = [device_ms(lambda: proj(
+        crop_t, logits.detach().requires_grad_(True)[idx_t], ones,
+        n_boxes).sum().backward()) for _ in range(2)]
+    t = time.perf_counter()
+    box_in = render_inputs(*fronts[str(device)].instances(
+        xyz, feats, corners, theta, phi)[0], BOX_VIEWS)
+    box_host_s = time.perf_counter() - t
+    box_t = (on_card(box_in[0], torch.float32),
+             on_card(box_in[1], torch.float32), on_card(box_in[2]))
+    box_dev = [device_ms(lambda: point2mask_module(
+        *box_t[:2], res, box_t[2], radius=BOX_RADIUS, nsample=BOX_NSAMPLE))
+        for _ in range(2)]
+    t = time.perf_counter()
+    passed = filter_images(images, pcfg)
+    raw = np.stack([extract_mask(images[i], pcfg.white_threshold)
+                    for i in passed])
+    raw[raw < 127] = 0
+    raw[raw >= 128] = 255
+    pix = Pixel2Mask(radius=pcfg.blur_radius, nsample=pcfg.blur_samples,
+                     device=device).inputs(raw)
+    pix_host_s = time.perf_counter() - t
+    pix_t = [on_card(a) for a in pix]
+    pix_dev = [device_ms(lambda: point2mask_module(
+        pix_t[0], pix_t[1], (pcfg.resolution,) * 2, pix_t[2],
+        radius=pcfg.blur_radius, nsample=pcfg.blur_samples))
+        for _ in range(2)]
+    log(f"offline: host s / device ms (CUDA events, first and second "
+        f"run): projector crop {crop_s:.3f} s ({crop.shape[0]} cropped "
+        f"points) / forward + backward "
+        f"{', '.join(f'{x:.1f}' for x in proj_dev)} ms; Box2Mask crops "
+        f"{box_host_s:.3f} s ({box_in[0].shape[0]} instance views of "
+        f"{box_in[0].shape[1]} points) / render "
+        f"{', '.join(f'{x:.1f}' for x in box_dev)} ms; mask pipeline "
+        f"filter + masks {pix_host_s:.3f} s / blur "
+        f"{', '.join(f'{x:.1f}' for x in pix_dev)} ms")
+    return launches
+
+
 def main() -> int:
     import argparse
 
@@ -3591,6 +4050,7 @@ def main() -> int:
     paths["plans-free"] = phase_plans_free(scenes, device)
     paths["remat"] = phase_remat(scenes, device)
     phase_kpconv(scenes, device)
+    paths["offline"] = phase_offline(scenes, device)
     # The kernels line lists every ported kernel with its launches summed
     # over the paths (0 for K4 and K5: no plan of any path is flat-form).
     for row in rows:

@@ -21,7 +21,10 @@ class PointcloudDataConfig:
     val_reps: int = 1                # multi-view voting repetitions
     batch_size: int = 16
     elastic_deformation: bool = False
-    with_boxes: bool = False         # GSS proposals (loaded, not collated)
+    # GSS proposals and the inverse augmentation in the train batch,
+    # ``max_boxes`` per scene with a validity mask
+    with_boxes: bool = False
+    max_boxes: int = 64
 
 
 @dataclass

@@ -9,8 +9,8 @@ output) and names them as the port's modules do;
 - Batch-norm and LayerNorm ``scale``/``bias`` become ``weight``/``bias``,
   batch-norm ``mean``/``var`` ``running_mean``/``running_var``.
 - Dense kernels (the ``linear`` head, ``text_linear``, the text blocks'
-  ``c_fc``/``c_proj``, KPFCNN's unary ``mlp``) are (in, out);
-  ``nn.Linear``'s weight is (out, in).
+  ``c_fc``/``c_proj``, KPFCNN's unary ``mlp``, the projector's
+  ``matting/model``) are (in, out); ``nn.Linear``'s weight is (out, in).
 - KPFCNN's kernel-point ``weights`` (K, Cin, Cout) and ``offset_bias``
   keep their names and layouts.
 - The attention's ``query``/``key``/``value`` kernels (in, heads,
@@ -50,6 +50,11 @@ def _is_attn(owner: Tuple[str, ...]) -> bool:
     return len(owner) >= 2 and owner[-2] == "attn" and owner[-1] in _ATTN
 
 
+def _is_dense(owner: Tuple[str, ...]) -> bool:
+    return bool(owner) and (owner[-1] in _DENSE
+                            or owner[-2:] == ("matting", "model"))
+
+
 def flax_to_state_dict(params: Mapping,
                        batch_stats: Optional[Mapping] = None
                        ) -> Dict[str, torch.Tensor]:
@@ -65,7 +70,7 @@ def flax_to_state_dict(params: Mapping,
                 arr = arr.reshape(-1, arr.shape[-1]).T
             else:                                    # (in, H, D)
                 arr = arr.reshape(arr.shape[0], -1).T
-        elif owner and owner[-1] in _DENSE:
+        elif _is_dense(owner):
             key = {"kernel": "weight", "bias": "bias"}[name]
             arr = arr.T if name == "kernel" else arr
         elif name == "embedding":
@@ -117,7 +122,7 @@ def state_dict_to_flax(sd: Mapping[str, torch.Tensor]
             else:                                    # (H*D, in)
                 arr = arr.T.reshape(arr.shape[1], heads_of(arr.shape[0]), -1)
             _put(params, owner + ("kernel",), arr.copy())
-        elif owner and owner[-1] in _DENSE:
+        elif _is_dense(owner):
             _put(params, owner + ({"weight": "kernel", "bias": "bias"}[key],),
                  arr.T.copy() if key == "weight" else arr)
         elif owner and owner[-1] == "token_embedding" and key == "weight":

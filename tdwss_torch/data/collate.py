@@ -5,8 +5,9 @@ Every batch is padded to the static ``max_points`` capacity and carries
 masks; if the scenes exceed it, a uniform random subset is kept, and
 :class:`CollateStats` counts the points seen and dropped.  Train batches
 of text configs carry the scenes' descriptions as token ids
-(:class:`TextBatch`); proposal boxes are not collated (no ported model
-reads them).
+(:class:`TextBatch`), and under ``pointcloud_data.with_boxes`` the
+scenes' GSS proposals with the inverse of each scene's augmentation
+(:class:`BoxBatch`).
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from tdwss_torch import NUM_CLASSES
 from tdwss_torch.config import Config
 from tdwss_torch.data.augment import (color_jitter, scene_label_from_points,
                                       train_transform, val_transform)
-from tdwss_torch.data.batch import PointBatch, TextBatch
+from tdwss_torch.data.batch import BoxBatch, PointBatch, TextBatch
 from tdwss_torch.data.synthetic import Scene
 from tdwss_torch.data.tokenizer import get_tokenizer, tokenize
 
@@ -79,17 +80,21 @@ def train_collate(scenes: Sequence[Scene], cfg: Config,
 
     Under ``has_text`` each scene's first ``cropped_texts`` descriptions
     become a (cropped_texts, max_seq_len) row of token ids (zeros for a
-    scene without texts); tokenizing draws nothing from ``rng``."""
+    scene without texts); tokenizing draws nothing from ``rng``.  Under
+    ``with_boxes`` the batch carries :func:`_collate_boxes` of the
+    scenes and the transforms their augmentation returned."""
     pcd = cfg.pointcloud_data
     full_scale = cfg.pointcloud_model.full_scale
     use_pseudo = cfg.label == "pseudo"
 
     coords_l, feats_l, label_l, batch_l = [], [], [], []
     scene_labels = []
+    transforms = []
     for idx, scene in enumerate(scenes):
-        a, keep, _ = train_transform(
+        a, keep, transform = train_transform(
             scene.points, pcd.scale, full_scale, rng,
             elastic_deformation=pcd.elastic_deformation)
+        transforms.append(transform)
         a = a[keep]
         labels = scene.labels[keep]
         if use_pseudo:
@@ -121,7 +126,37 @@ def train_collate(scenes: Sequence[Scene], cfg: Config,
         point_label=arrays["point_label"],
         point_ids=np.full(cfg.engine.max_points, -1, np.int32),
         text=collate_text(scenes, cfg) if cfg.has_text else None,
+        box=(_collate_boxes(scenes, transforms, pcd.max_boxes)
+             if pcd.with_boxes else None),
     )
+
+
+def _collate_boxes(scenes: Sequence[Scene], transforms: Sequence[dict],
+                   max_boxes: int) -> BoxBatch:
+    """Each scene's first ``max_boxes`` proposals, padded, with a
+    validity mask, and the inverse augmentation [align, center, rot_inv,
+    offset] (reference trainMerge, dataset/data.py:199,223-238); a scene
+    without ``align`` keeps the identity, without ``center`` zeros."""
+    b = len(scenes)
+    boxes = np.zeros((b, max_boxes, 6), np.float32)
+    valid = np.zeros((b, max_boxes), bool)
+    align = np.tile(np.eye(4, dtype=np.float32), (b, 1, 1))
+    center = np.zeros((b, 3), np.float32)
+    rot_inv = np.zeros((b, 3, 3), np.float32)
+    offset = np.zeros((b, 3), np.float32)
+    for i, (scene, tf) in enumerate(zip(scenes, transforms)):
+        if scene.boxes is not None and scene.boxes.shape[0]:
+            k = min(scene.boxes.shape[0], max_boxes)
+            boxes[i, :k] = scene.boxes[:k, :6]
+            valid[i, :k] = True
+        if scene.align is not None:
+            align[i] = scene.align
+        if scene.center is not None:
+            center[i] = scene.center
+        rot_inv[i] = tf["rot_inv"]
+        offset[i] = tf["offset"]
+    return BoxBatch(boxes=boxes, valid=valid, align=align, center=center,
+                    rot_inv=rot_inv, offset=offset)
 
 
 def collate_text(scenes: Sequence[Scene], cfg: Config) -> TextBatch:

@@ -30,6 +30,7 @@ from tdwss_torch.models.kpconv.blocks import (KPBatch, UnaryBlock,
 from tdwss_torch.models.kpconv.config import KPConvConfig
 from tdwss_torch.models.kpconv.ops import p2p_fitting_regularizer
 from tdwss_torch.models.layers import acc_dtype
+from tdwss_torch.registry import MODEL_REGISTRY
 
 
 def _plan_blocks(cfg: KPConvConfig):
@@ -79,6 +80,7 @@ def _plan_blocks(cfg: KPConvConfig):
             out_dim)
 
 
+@MODEL_REGISTRY.register()
 class KPFCNN(nn.Module):
     """Kernel Point Fully Convolutional Network.
 

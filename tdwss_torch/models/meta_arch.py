@@ -36,6 +36,7 @@ from tdwss_torch.models.transformer import (build_text_encoder,
                                             normal_linear)
 from tdwss_torch.ops.segment import segment_mean_by_batch
 from tdwss_torch.ops.windowed import KMAX
+from tdwss_torch.registry import MODEL_REGISTRY
 
 
 def build_encoder(pc_config: PointcloudModelConfig,
@@ -65,6 +66,7 @@ def _head(fan_in: int, fan_out: int, gen: torch.Generator) -> nn.Linear:
     return normal_linear(fan_in, fan_out, (1.0 / fan_in) ** 0.5, gen)
 
 
+@MODEL_REGISTRY.register()
 class MultiLabel(nn.Module):
     """No-text scene-tag classifier.
 
@@ -104,6 +106,7 @@ class MultiLabel(nn.Module):
         return (logits, None) if istrain else logits
 
 
+@MODEL_REGISTRY.register(reads_point_coords=True)
 class FullySupervised(MultiLabel):
     """Pseudo-label retraining round: per-point logits through the
     differentiable readback (``devoxelize_seg``), batch norm in train
@@ -131,6 +134,7 @@ class FullySupervised(MultiLabel):
         return scene, logits
 
 
+@MODEL_REGISTRY.register()
 class MultiLabelContrastive(MultiLabel):
     """Scene-tag classification + text-scene contrastive alignment.
 
@@ -186,26 +190,27 @@ class MultiLabelContrastive(MultiLabel):
             gfeats, tfeats, None if text is None else text.has_text)
 
 
-MODELS = {"MultiLabel": MultiLabel, "FullySupervised": FullySupervised,
-          "MultiLabelContrastive": MultiLabelContrastive}
-
-
 def model_reads(name: str) -> Tuple[bool, bool]:
     """``(reads_point_coords, reads_point_leaves)`` of the training step
     of the meta-architecture ``name``.  The point leaves are
-    ``point2voxel``, ``point_perm``, ``point_label`` and ``valid``.  An
-    unknown name reads everything."""
-    cls = MODELS.get(name)
-    if cls is not None:
-        return cls.reads_point_coords, cls.reads_point_leaves
-    return True, True
+    ``point2voxel``, ``point_perm``, ``point_label`` and ``valid``.  A
+    name that is not a registered meta-architecture reads everything."""
+    try:
+        cls, _ = MODEL_REGISTRY.get(name)
+    except KeyError:
+        return True, True
+    if not (isinstance(cls, type) and issubclass(cls, MultiLabel)):
+        return True, True
+    return cls.reads_point_coords, cls.reads_point_leaves
 
 
 def build_model(cfg, seed: int = 0, device=None) -> nn.Module:
-    """Model named by ``cfg.model_name`` (reference train.py:31-32)."""
-    cls = MODELS.get(cfg.model_name)
-    if cls is None:
-        raise NotImplementedError(f"model {cfg.model_name!r} is not ported")
+    """Model named by ``cfg.model_name`` in ``MODEL_REGISTRY`` (reference
+    train.py:31-32); a name it does not hold raises its ``KeyError``."""
+    cls, _ = MODEL_REGISTRY.get(cfg.model_name)
+    if not (isinstance(cls, type) and issubclass(cls, MultiLabel)):
+        raise KeyError(f"'{cfg.model_name}' in '{MODEL_REGISTRY.name}' "
+                       f"registry is not a meta-architecture")
     if (cfg.has_text and cfg.text_model.name == "CLIPTransformer"
             and not cfg.text_data.bpe_vocab_path):
         # The frozen CLIP tower's embedding was trained on clip.tokenize

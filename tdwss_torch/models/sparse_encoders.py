@@ -49,6 +49,7 @@ from tdwss_torch.ops.plan import LevelPlans, build_plans, level_capacities
 from tdwss_torch.ops.segment import segment_mean_weighted
 from tdwss_torch.ops.sparse_conv import unpool, wg_unpool_apply
 from tdwss_torch.ops.voxelize import devoxelize, devoxelize_seg, voxelize
+from tdwss_torch.registry import MODEL_REGISTRY
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -208,58 +209,92 @@ def _narrow_planes(default):
     return planes
 
 
-# name -> (body, plane schedule from the config, output width from the
-# planes), as the reference's encoder classes define them
-# (tdwss/models/sparse_encoders.py:300-349)
-ENCODERS = {
-    "SparseConvUNet": (UNetBody, _unet_planes, lambda p: p[0]),
-    "SparseConvFCNet": (FCNBody, _fcnet_planes, sum),
-    "SparseConvFCNetNarrow": (FCNBody, _narrow_planes((64, 128, 192, 256)),
-                              sum),
-    "SparseConvFCNetDirectUpPool": (
-        DirectUpPoolBody, _narrow_planes((64, 128, 192, 256)),
-        lambda p: p[-1]),
-    "SparseConvFCNetDirectUpPoolLight": (
-        DirectUpPoolBody, _narrow_planes((32, 64, 96, 128)),
-        lambda p: p[-1]),
-}
+class EncoderSpec:
+    """A registered encoder: its body class, its planes from the config
+    (:meth:`planes`) and its output width from the planes
+    (:meth:`width`), as the reference's encoder classes define them
+    (tdwss/models/sparse_encoders.py:291-343).  The registry's
+    ``embed_length`` is the reference's; MultiLabel's head does not read
+    it: its flax ``Dense`` takes the encoder's real output width, which
+    differs where FCNet's depth is not 7 (smoke_cpu.yaml: depth 3, m=4
+    gives 24 against 28m = 112) or Narrow's planes are not the default."""
 
-# The reference registry's ``embed_length`` of each encoder
-# (tdwss/models/sparse_encoders.py:318-349), copied.  MultiLabel's head
-# does not read it: its flax ``Dense`` takes the encoder's real output
-# width, which differs where FCNet's depth is not 7 (smoke_cpu.yaml:
-# depth 3, m=4 gives 24 against 28m = 112) or Narrow's planes are not the
-# default.
-EMBED_LENGTH = {
-    "SparseConvUNet": lambda m: m,
-    "SparseConvFCNet": lambda m: 7 * (7 + 1) * m // 2,
-    "SparseConvFCNetNarrow": lambda m: sum([m, 64, 128, 192, 256]),
-    "SparseConvFCNetDirectUpPool": lambda m: 256,
-    "SparseConvFCNetDirectUpPoolLight": lambda m: 128,
-}
+    body: type = nn.Module
+
+    @staticmethod
+    def planes(pc) -> Tuple[int, ...]:
+        raise NotImplementedError
+
+    @staticmethod
+    def width(planes: Tuple[int, ...]) -> int:
+        raise NotImplementedError
+
+
+@MODEL_REGISTRY.register(embed_length=lambda m: m)
+class SparseConvUNet(EncoderSpec):
+    body = UNetBody
+    planes = staticmethod(_unet_planes)
+    width = staticmethod(lambda p: p[0])
+
+
+@MODEL_REGISTRY.register(embed_length=lambda m: 7 * (7 + 1) * m // 2)
+class SparseConvFCNet(EncoderSpec):
+    body = FCNBody
+    planes = staticmethod(_fcnet_planes)
+    width = staticmethod(sum)
+
+
+@MODEL_REGISTRY.register(embed_length=lambda m: sum([m, 64, 128, 192, 256]))
+class SparseConvFCNetNarrow(EncoderSpec):
+    body = FCNBody
+    planes = staticmethod(_narrow_planes((64, 128, 192, 256)))
+    width = staticmethod(sum)
+
+
+@MODEL_REGISTRY.register(embed_length=lambda m: 256)
+class SparseConvFCNetDirectUpPool(EncoderSpec):
+    body = DirectUpPoolBody
+    planes = staticmethod(_narrow_planes((64, 128, 192, 256)))
+    width = staticmethod(lambda p: p[-1])
+
+
+@MODEL_REGISTRY.register(embed_length=lambda m: 128)
+class SparseConvFCNetDirectUpPoolLight(EncoderSpec):
+    body = DirectUpPoolBody
+    planes = staticmethod(_narrow_planes((32, 64, 96, 128)))
+    width = staticmethod(lambda p: p[-1])
+
+
+def encoder_names() -> Tuple[str, ...]:
+    """The registered encoders' names."""
+    return tuple(sorted(n for n, (obj, _) in MODEL_REGISTRY
+                        if isinstance(obj, type)
+                        and issubclass(obj, EncoderSpec)))
 
 
 def _encoder_entry(name: str):
-    if name not in ENCODERS:
-        raise NotImplementedError(f"encoder {name!r} is not ported yet")
-    return ENCODERS[name]
+    spec, _ = MODEL_REGISTRY.get(name)
+    if not (isinstance(spec, type) and issubclass(spec, EncoderSpec)):
+        raise KeyError(f"'{name}' in '{MODEL_REGISTRY.name}' registry is "
+                       f"not a point-cloud encoder")
+    return spec
 
 
 def plane_schedule(pc_config) -> Tuple[int, ...]:
     """The configured encoder's planes, one per level."""
-    return _encoder_entry(pc_config.name)[1](pc_config)
+    return tuple(_encoder_entry(pc_config.name).planes(pc_config))
 
 
 def output_width(pc_config) -> int:
     """Width of the configured encoder's per-voxel output."""
-    _, planes_of, width_of = _encoder_entry(pc_config.name)
-    return int(width_of(planes_of(pc_config)))
+    spec = _encoder_entry(pc_config.name)
+    return int(spec.width(spec.planes(pc_config)))
 
 
 def embed_length_of(name: str, m: int) -> int:
-    """The reference registry's ``embed_length`` of encoder ``name``."""
-    _encoder_entry(name)
-    return EMBED_LENGTH[name](m)
+    """The registry's ``embed_length`` of encoder ``name``."""
+    _, meta = MODEL_REGISTRY.get(name)
+    return meta.get("embed_length", lambda m_: m_)(m)
 
 
 def plan_spec(pc_config, engine, n_points: int):
@@ -358,7 +393,7 @@ def build_sparse_encoder(pc_config, compute_dtype: str = "float32",
     config's ``block_reps``, ``residual_blocks`` and ``downsample``, and
     the capacities of ``engine`` (an ``EngineConfig``; its defaults when
     None) for the plans-free branch."""
-    body_cls = _encoder_entry(pc_config.name)[0]
+    body_cls = _encoder_entry(pc_config.name).body
     return SparseEncoder(body_cls, plane_schedule(pc_config),
                          output_width(pc_config),
                          block_reps=pc_config.block_reps,

@@ -29,6 +29,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from tdwss_torch.registry import MODEL_REGISTRY
+
 LN_EPS = 1e-5
 
 
@@ -114,6 +116,7 @@ class ResidualAttentionBlock(nn.Module):
         return x + self.c_proj(self.gelu(self.c_fc(self.ln_2(x))))
 
 
+@MODEL_REGISTRY.register()
 class TextTransformer(nn.Module):
     """Trainable CLIP-architecture text encoder (reference
     Transformer.py:64-120): (B, L) int token ids -> (B, width) float32
@@ -147,6 +150,7 @@ class TextTransformer(nn.Module):
         return x[torch.arange(x.shape[0], device=x.device), eot]
 
 
+@MODEL_REGISTRY.register()
 class CLIPTransformer(nn.Module):
     """Frozen CLIP text tower (reference Transformer.py:123-140) at CLIP's
     fixed sizes (77 tokens, width 512, 12 layers, vocab 49,408): its
@@ -187,18 +191,13 @@ class CLIPTransformer(nn.Module):
         return tree
 
 
-TEXT_MODELS = {"TextTransformer": TextTransformer,
-               "CLIPTransformer": CLIPTransformer}
-
-
 def build_text_encoder(text_config,
                        generator: Optional[torch.Generator] = None
                        ) -> nn.Module:
-    """The configured text tower; ``CLIPTransformer`` keeps its fixed
-    sizes whatever the config's (reference meta_arch.py:59-72)."""
-    cls = TEXT_MODELS.get(text_config.name)
-    if cls is None:
-        raise KeyError(f"unknown text model {text_config.name!r}")
+    """The configured text tower, looked up in ``MODEL_REGISTRY``;
+    ``CLIPTransformer`` keeps its fixed sizes whatever the config's
+    (reference meta_arch.py:59-72)."""
+    cls, _ = MODEL_REGISTRY.get(text_config.name)
     if cls is CLIPTransformer:
         return cls(clip_weights_path=text_config.clip_weights_path,
                    generator=generator)

@@ -14,7 +14,7 @@ which builds or raises.
 The KPConv host ops (:func:`grid_subsample`, :func:`radius_neighbors`)
 and :func:`region_grow` never fall back silently: they build the
 library or raise, and run their numpy versions only inside
-:func:`disabled` (``region_grow`` has none and raises there).
+:func:`disabled`.
 """
 
 from __future__ import annotations
@@ -430,16 +430,64 @@ def region_grow(points: np.ndarray, normals: np.ndarray, k: int = 12,
         extent = float(points.max(0).min() - points.min(0).min() + 1e-6)
         cell_size = max(extent / max(np.cbrt(n), 1.0) * 2.0, max_dist * 2,
                         1e-3)
-    lib = _host_op_lib()
+    lib = _host_op_lib() if n > 0 else None
     if lib is None:
-        raise RuntimeError("region_grow has no numpy version: the native "
-                           "library is switched off")
+        return _region_grow_np(points, normals, k, max_dist, max_angle_deg,
+                               min_region)
     out = np.empty(n, np.int32)
-    if n == 0:
-        return out, 0
     num = lib.region_grow(
         _p(_f32(points), ctypes.c_float), _p(_f32(normals), ctypes.c_float),
         ctypes.c_int64(n), ctypes.c_int32(k), ctypes.c_float(max_dist),
         ctypes.c_float(max_angle_deg), ctypes.c_int32(min_region),
         ctypes.c_float(cell_size), _p(out))
     return out, int(num)
+
+
+def _region_grow_np(points, normals, k, max_dist, max_angle_deg,
+                    min_region):
+    """The numpy version of :func:`region_grow` (the reference's
+    ``tdwss.native._region_grow_np``): breadth-first growth from each
+    unassigned point in index order over its k nearest neighbours (scipy's
+    ``cKDTree``), gated by the normal's angle and the distance to the
+    region's running plane; regions under ``min_region`` points are
+    undone."""
+    from scipy.spatial import cKDTree
+
+    n = points.shape[0]
+    tree = cKDTree(points)
+    _, knn = tree.query(points, k=min(k + 1, n))
+    knn = knn[:, 1:]
+    cos_thresh = np.cos(np.deg2rad(max_angle_deg))
+    region = np.full(n, -1, np.int32)
+    num = 0
+    for seed in range(n):
+        if region[seed] != -1:
+            continue
+        members = [seed]
+        region[seed] = num
+        normal = normals[seed].astype(np.float64).copy()
+        centroid = points[seed].astype(np.float64).copy()
+        head = 0
+        while head < len(members):
+            cur = members[head]
+            head += 1
+            for nb in knn[cur]:
+                if region[nb] != -1:
+                    continue
+                nlen = np.linalg.norm(normal) + 1e-12
+                dot = float(normals[nb] @ normal) / nlen
+                if abs(dot) < cos_thresh:
+                    continue
+                dist = abs(float((points[nb] - centroid / len(members))
+                                 @ normal) / nlen)
+                if dist > max_dist:
+                    continue
+                region[nb] = num
+                members.append(int(nb))
+                centroid += points[nb]
+                normal += np.sign(dot) * normals[nb]
+        if len(members) < min_region:
+            region[np.asarray(members)] = -1
+        else:
+            num += 1
+    return region, num

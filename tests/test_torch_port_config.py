@@ -25,7 +25,7 @@ from tdwss_torch.data.collate import train_collate
 from tdwss_torch.data.dataset import expand_subclouds
 from tdwss_torch.data.synthetic import make_dataset
 from tdwss_torch.models.meta_arch import build_model
-from tdwss_torch.models.sparse_encoders import EMBED_LENGTH, embed_length_of
+from tdwss_torch.models.sparse_encoders import embed_length_of, encoder_names
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = sorted(glob.glob(os.path.join(REPO, "configs", "*.yaml")))
@@ -189,7 +189,7 @@ def test_only_the_text_configs_are_refused():
     assert labels.count("pseudo") == 2 and labels.count("subcloud") == 3
 
 
-@pytest.mark.parametrize("name", sorted(EMBED_LENGTH))
+@pytest.mark.parametrize("name", encoder_names())
 def test_embed_length_table_is_the_registrys(name):
     for m in (4, 16, 32):
         assert embed_length_of(name, m) == ref_embed_length(name, m)

@@ -110,8 +110,9 @@ def test_native_numpy_versions_only_when_switched_off():
     with native.disabled():
         got = native.grid_subsample(pts, feats, labels, cell_size=0.2)
         neigh = native.radius_neighbors(pts[:50], pts, 0.2, 16)
-        with pytest.raises(RuntimeError):
-            native.region_grow(pts, feats[:, :3])
+        grown = native.region_grow(pts, feats[:, :3], min_region=5)
+    assert np.array_equal(grown[0], ref_native._region_grow_np(
+        pts, feats[:, :3], 12, 0.05, 20.0, 5)[0])
     want = ref_native._grid_subsample_np(pts, feats, labels, 0.2)
     for a, b in zip(got, want):
         assert np.array_equal(a, b)
