@@ -71,7 +71,14 @@ offline tools (GSS proposals, boxes in the train batch, the projector,
    features, ``TextContrastive`` and the text mask on the card against
    the same weights on the CPU, the tower's forward and backward ms
    (CUDA events) and share of a warm step, and no synchronising call in
-   a warm text step;
+   a warm text step; then ``..._fcnet_baseline_finer.yaml`` at its own
+   batch (6 synthetic scenes of ``max_points // batch_size`` points in
+   its ``max_points`` of 4,194,304): 2 steps with the launch counts set
+   to 0 just before and read just after, equal to the plans' routing and
+   on the tensor-core body, the loss finite, host plan s, device s per
+   step and peak memory beside the cut's; then one more forward and
+   backward in which each kernel's first launch at each operand shape of
+   level 0 is copied and held against its plain version;
 7. forward sweep: K1 at every distinct (form, C, Cout, K) that the paths
    of 5-6 launched, on their own windows, and at a ragged synthetic plan
    (V_out not a multiple of 64, Cout not a multiple of 8, rb in the
@@ -114,7 +121,15 @@ offline tools (GSS proposals, boxes in the train batch, the projector,
     the spill tiers' segmented sums, the conv backward around the
     kernels, the kernel wrappers' own ops, Adam, casts and copies, other
     forward and backward ops); the trace goes to
-    ``<--trace-dir>/trace.json.gz`` (default ``exp/chip_smoke/``);
+    ``<--trace-dir>/trace.json.gz`` (default ``exp/chip_smoke/``); then
+    the rulebook pools (plain PyTorch, as the reference's): ``max_pool``,
+    ``avg_pool`` and ``gather_neighbors`` over level 0's ``down_rb`` and
+    ``gather_neighbors`` over its subm rulebook, on the bench UNet's
+    train batch with ties among children and an entry beyond the level
+    planted, card against CPU in f32 and bf16, values and gradients bit
+    for bit (``avg_pool`` within POOL_AVG_TOL, and the subm rulebook's
+    gradient, up to 27 entries per voxel summed in another order, within
+    POOL_SUM_TOL);
 12. loop, in a temporary working directory, on 10 synthetic train scenes
     of 150,000 points and the 5 val scenes: a ``Trainer`` over
     ``configs/3DUNetWithText_pseudolabel_finer.yaml`` (cut to the bench
@@ -180,9 +195,11 @@ offline tools (GSS proposals, boxes in the train batch, the projector,
     host pyramid timed, an eval forward, one train step's logits, loss
     and gradients against the CPU on the same weights (the reference's
     NaN offset gradients at the same sites), a planted fault (a shadow
-    neighbour read as row 0) caught, 3 Adam steps with the deform group
-    (CUDA events, peak memory, the loss falling, every parameter moved)
-    and no synchronising call in a warm step;
+    neighbour read as row 0) caught, the card's f32 step with the CPU's
+    f32 selections replayed on the exact-size and on the padded batch
+    (KP_REPLAY_RTOL), 3 Adam steps with the deform group (CUDA events,
+    peak memory, the loss falling, every parameter moved) and no
+    synchronising call in a warm step;
 17. offline tools: GSS proposals (``gss.generate_proposals`` on the
     native library) for one scene at its full point count, with the
     seconds of normals, region growing, merging and NMS, the boxes
@@ -200,7 +217,9 @@ offline tools (GSS proposals, boxes in the train batch, the projector,
     without ``rot_inv``) caught; ``Box2Mask`` on that scene's points,
     logits and corner boxes (3 views, resolution 256, radius 4, nsample
     3) and ``run_mask_pipeline`` on 8 synthetic 256x256 images, each
-    against the CPU (ball-query indices equal, or each flip a distance
+    against the CPU (``Box2Mask`` on a seeded sample of the boxes
+    stratified by proposal order and size, with the largest that fits
+    BOX_CPU_POINTS; ball-query indices equal, or each flip a distance
     within a few ulps of the radius and the masks held with the CPU's
     indices; masks within 1e-5); ms and peak memory of each;
 18. one JSON line with the numbers of every ported kernel (K1-K7, each
@@ -1105,21 +1124,152 @@ def phase_main(cfg, scenes, plans_rep1, batch_rep1, device):
     return launches
 
 
+@contextlib.contextmanager
+def record_level_launches(held, rows):
+    """Keep in ``held``, copied to the host, the arguments and outputs of
+    the enclosed run's first launch of each kernel at each operand shape
+    among the launches that have a feature operand of ``rows`` rows:
+    {(name, shapes): (args, kwargs, out)}."""
+    import torch
+
+    def keep(x):
+        if isinstance(x, tuple):
+            return tuple(keep(y) for y in x)
+        return x.cpu() if isinstance(x, torch.Tensor) else x
+
+    def make(name, fn):
+        def recorded(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            ops = [a for a in args if isinstance(a, torch.Tensor)
+                   and a.dim() >= 2]
+            # features and weights past their rows; plans by their taps
+            key = (name, tuple(tuple(a.shape[1:]) if a.is_floating_point()
+                               else a.shape[0] for a in ops))
+            if key not in held and any(a.is_floating_point()
+                                       and a.shape[0] == rows for a in ops):
+                held[key] = (keep(args), keep(kwargs), keep(out))
+            return out
+        return recorded
+
+    with patched_entries(KERNEL_ENTRIES, make):
+        yield held
+
+
+def hold_launches(label, held, device):
+    """Each launch in ``held`` (``record_level_launches``) against its
+    plain version on the same arguments, one at a time on ``device``:
+    outputs and dfeats within KERNEL_TOL, dW within DW_TOL."""
+    import torch
+
+    from tdwss_torch.ops import windowed as W
+
+    def card(x):
+        if isinstance(x, tuple):
+            return tuple(card(y) for y in x)
+        return x.to(device) if isinstance(x, torch.Tensor) else x
+
+    # the names of each kernel's outputs, with their limits
+    parts = {W.K1: (("out", KERNEL_TOL),), W.K4: (("out", KERNEL_TOL),),
+             W.K3: (("dW", DW_TOL),), W.K5: (("dW", DW_TOL),),
+             W.K2: (("dfeats", KERNEL_TOL), ("dW", DW_TOL)),
+             W.K6: (("dfeats", KERNEL_TOL), ("dW", DW_TOL))}
+    for (name, _), (args, kwargs, out) in sorted(held.items(),
+                                                  key=lambda kv: str(kv[0])):
+        args, kwargs, out = card(args), card(kwargs), card(out)
+        ref = getattr(W, name + "_plain")(*args, **kwargs)
+        outs = out if isinstance(out, tuple) else (out,)
+        refs = ref if isinstance(ref, tuple) else (ref,)
+        shapes = [tuple(a.shape) for a in args if isinstance(a, torch.Tensor)
+                  and a.is_floating_point()]
+        for (what, tol), o, r in zip(parts[name], outs, refs):
+            if o is not None:
+                check_against_plain(name, o, r, f"{label}: {what} of a "
+                                    f"level-0 launch (operands {shapes})",
+                                    tol)
+        del args, kwargs, out, ref, outs, refs
+
+
+def phase_own_size(cut):
+    """``configs/3DUNetWithText_scannet_fcnet_baseline_finer.yaml`` at its
+    own batch: ``batch_size`` 6 scenes of ``max_points // batch_size``
+    points planned on the host (timed), ``own_size.STEPS`` training steps
+    through the kernels (``tools/own_size.run_steps``: the launch counts
+    set to 0 just before and read just after), equal to the plans'
+    routing and on the tensor-core body, the loss finite; host plan s,
+    device s per step and peak memory beside ``cut``, the FCNet path's at
+    the bench batch's cut.  Then one more forward and backward of the
+    same model on the same batch, uncounted, in which each kernel's first
+    launch at each operand shape of level 0 (4,194,304 rows) is copied
+    to the host and then held against its plain version
+    (``hold_launches``)."""
+    import torch
+
+    from tdwss_torch.data.synthetic import make_dataset
+    from tdwss_torch.engine.steps import compute_loss
+    from tdwss_torch.tools.own_size import STEPS, run_steps
+
+    label = "FCNet at its own size"
+    cfg = fcnet_config()
+    n = cfg.pointcloud_data.batch_size
+    pps = cfg.engine.max_points // n
+    t = time.perf_counter()
+    scenes = make_dataset(n, num_points=pps, seed=7, with_text=False)
+    log(f"{label}: {n} scenes x {pps} points "
+        f"({sum(sc.points.shape[0] for sc in scenes)} in all) in "
+        f"{time.perf_counter() - t:.2f} s")
+    planned, host, host_s = plan_train_batch(cfg, scenes, label)
+    del planned, scenes
+    torch.cuda.empty_cache()
+    out = run_steps(cfg, host)
+    launches = out["launches"]
+    check_bodies(label)
+    want = {k: v * STEPS for k, v in expected_launches(
+        out["model"], host.plans, train=True).items()}
+    cut_host, cut_steps, cut_peak = cut
+    log(f"{label} (max_points {cfg.engine.max_points}, batch {n}): losses "
+        f"{out['losses']}; host plan {host_s:.3f} s, device s per step "
+        f"{', '.join(f'{x:.3f}' for x in out['step_s'])}, peak device "
+        f"memory {out['peak_gib']:.2f} GiB; beside the cut to the bench "
+        f"batch (max_points {MAX_POINTS}, {NUM_SCENES} scenes of "
+        f"{POINTS_PER_SCENE}): host plan {cut_host:.3f} s, device s per "
+        f"step {', '.join(f'{x:.3f}' for x in cut_steps)}, peak "
+        f"{cut_peak:.2f} GiB; launches {launches}, routed by the plans "
+        f"{want}")
+    if launches != want or not launches["windowed_matmul_sub"]:
+        raise AssertionError(f"{label}: launches differ from the plans' "
+                             f"routing: {launches} vs {want}")
+    if not all(math.isfinite(x) for x in out["losses"]):
+        raise AssertionError(f"{label}: non-finite loss {out['losses']}")
+
+    model, batch = out.pop("model"), out.pop("batch")
+    device = next(model.parameters()).device
+    held = {}
+    with record_level_launches(held,
+                               host.plans.levels[0].grid.valid.shape[0]):
+        model.zero_grad(set_to_none=True)
+        loss, _ = compute_loss(cfg, model, batch)
+        loss.backward()
+    torch.cuda.synchronize()
+    del model, batch, loss, out
+    torch.cuda.empty_cache()
+    launched = {k for k, v in launches.items() if v}
+    log(f"{label}: {len(held)} launches at level 0 held: "
+        f"{sorted(held, key=str)}")
+    if {name for name, _ in held} != launched:
+        raise AssertionError(f"{label}: held {sorted(held, key=str)}, "
+                             f"launched {sorted(launched)}")
+    hold_launches(label, held, device)
+    del held
+    torch.cuda.empty_cache()
+    return launches
+
+
 def plan_train_batch(cfg, scenes, label):
     """One training batch of ``cfg`` planned on the host (collate + plans
     + slim, timed): (planned, slimmed, seconds)."""
-    import numpy as np
+    from tdwss_torch.tools.own_size import plan_batch
 
-    from tdwss_torch.data.collate import train_collate
-    from tdwss_torch.data.plans import attach_host_plans, slim_batch_for_train
-    from tdwss_torch.ops.host_plan import reset_sticky_plans
-
-    reset_sticky_plans()
-    t = time.perf_counter()
-    planned = attach_host_plans(
-        train_collate(scenes, cfg, np.random.default_rng(0)), cfg)
-    host = slim_batch_for_train(planned, cfg)
-    host_s = time.perf_counter() - t
+    planned, host, host_s = plan_batch(cfg, scenes)
     log(f"{label}: train batch on the host (collate + plans + slim): "
         f"{host_s:.3f} s")
     for i, lvl in enumerate(host.plans.levels):
@@ -1140,7 +1290,8 @@ def phase_train(label, cfg, planned, host, host_s, device, steps,
     With ``f32_loss`` also an f32 step's loss parts (LOSS_RTOL_F32).
     With ``full_checks`` (the bench UNet) or ``repro`` also two bf16
     steps' gradients bit for bit; with ``full_checks`` also the f32 step
-    (layer by layer, loss, gradients per tensor, bit for bit)."""
+    (layer by layer, loss, gradients per tensor, bit for bit).  Returns
+    the launches and (host plan s, device s per step, peak GiB)."""
     import torch
 
     from tdwss_torch.data.plans import slim_batch_for_train
@@ -1179,6 +1330,7 @@ def phase_train(label, cfg, planned, host, host_s, device, steps,
             f"with any synchronisation inside the step); host planning of "
             f"its batch {host_s:.3f} s")
     log(f"{label}: peak device memory over the steps: {peak:.2f} GiB")
+    stats = (host_s, step_s, peak)
     per_step = expected_launches(model, host.plans, train=True)
     want = {k: v * steps for k, v in per_step.items()}
     log(f"{label}: launches per step routed by the plans: {per_step}; in "
@@ -1264,7 +1416,7 @@ def phase_train(label, cfg, planned, host, host_s, device, steps,
                    dict.fromkeys(lk32, LOSS_RTOL_F32))
         del m32, b32
     if not (full_checks or repro):
-        return launches
+        return launches, stats
 
     # bf16: two steps through the kernels, every gradient bit for bit
     # (the dW partials and the spill tiers' segmented sums add in a fixed
@@ -1278,7 +1430,7 @@ def phase_train(label, cfg, planned, host, host_s, device, steps,
                              "are not reproducible")
     del m16, gk, gk2
     if not full_checks:
-        return launches
+        return launches, stats
     # f32: layer by layer, the loss, the gradients per tensor, bit for bit
     m32, cfg32, b32 = f32_run()
     layer_by_layer(m32, cfg32, b32, "f32", (KERNEL_TOL_F32, DW_TOL))
@@ -1297,7 +1449,7 @@ def phase_train(label, cfg, planned, host, host_s, device, steps,
         raise AssertionError("f32 training gradients through the kernels "
                              "disagree with the plain versions or are not "
                              "reproducible")
-    return launches
+    return launches, stats
 
 
 def text_config():
@@ -1335,12 +1487,12 @@ def phase_text(scenes, device):
         raise AssertionError("Text: the batch should fill some slots of "
                              "every scene and leave some empty")
     planned, host, host_s = plan_train_batch(cfg, scenes, "Text")
-    launches = phase_train("Text", cfg, planned, host, host_s, device,
-                           TEXT_STEPS, full_checks=False, repro=True,
-                           loss_rtol={"cls_loss": LOSS_RTOL,
-                                      "text_loss": TEXT_LOSS_RTOL,
-                                      "loss": TEXT_LOSS_RTOL},
-                           f32_loss=True)
+    launches, _ = phase_train("Text", cfg, planned, host, host_s, device,
+                              TEXT_STEPS, full_checks=False, repro=True,
+                              loss_rtol={"cls_loss": LOSS_RTOL,
+                                         "text_loss": TEXT_LOSS_RTOL,
+                                         "loss": TEXT_LOSS_RTOL},
+                              f32_loss=True)
     del planned
     check_text_loss_limit(cfg, host, device)
     check_text_parts(cfg, host, device)
@@ -2080,6 +2232,129 @@ def halo_face_index(plan):
     return np.concatenate([idx, np.full(pad, end)]).astype(np.int32)
 
 
+# avg_pool: an f32 sum of at most 8 children, divided by their count;
+# in bf16 the same f32 value rounded once more
+POOL_AVG_TOL = {"float32": 1e-6, "bfloat16": 2.0 ** -8}   # of max|cpu|
+# gather_neighbors' gradient over the subm rulebook: each voxel's up to
+# 27 entries summed in another order on the card (the CPU adds a bf16
+# gradient in bf16, one rounding per entry: 0.0052 of max|grad| against
+# an f32 sum rounded once, on one 150,000-point scene)
+POOL_SUM_TOL = {"float32": 1e-6, "bfloat16": 2.0 ** -6}   # of max|cpu|
+POOL_SUBM_C = 8                    # the subm rulebook's gather, channels
+
+
+def phase_pools(scenes, device, gen):
+    """``max_pool``, ``avg_pool`` and ``gather_neighbors`` (plain PyTorch,
+    no kernel, as the reference's are plain XLA) on level 0 of the bench
+    UNet's train batch, planned on the host without the slimming that
+    drops the rulebooks: the pools and ``gather_neighbors`` over its
+    ``down_rb`` at the bench UNet's width, ``gather_neighbors`` over its
+    subm rulebook (all 27 taps of every voxel) at POOL_SUBM_C channels;
+    features on a grid of quarters (so that children tie), three
+    children of one voxel made equal and above the rest (a tie of 3),
+    one entry of ``down_rb`` set beyond the level (>= V); values and the
+    gradients of the sum against a seeded cotangent, card against CPU,
+    in f32 and bf16: bit for bit, except ``avg_pool`` (POOL_AVG_TOL) and
+    the subm rulebook's gradient, a sum of up to 27 entries per voxel
+    (POOL_SUM_TOL)."""
+    import numpy as np
+    import torch
+
+    from tdwss_torch.data.collate import train_collate
+    from tdwss_torch.data.plans import attach_host_plans
+    from tdwss_torch.ops import gather_neighbors, max_pool
+    from tdwss_torch.ops.host_plan import build_subm_rulebook_np
+    from tdwss_torch.ops.sparse_conv import avg_pool
+
+    cfg = bench_config()
+    t = time.perf_counter()
+    lvl = attach_host_plans(train_collate(scenes, cfg,
+                                          np.random.default_rng(0)),
+                            cfg, slim=False).plans.levels[0]
+    plan_s = time.perf_counter() - t
+    down = np.array(lvl.down_rb, np.int32)
+    subm = np.asarray(lvl.subm_rb)
+    t = time.perf_counter()
+    if not subm.shape[0]:                   # a placeholder at windowed levels
+        subm = build_subm_rulebook_np(lvl.grid, 3)
+    rb_s = time.perf_counter() - t
+    v, c = lvl.grid.valid.shape[0], cfg.pointcloud_model.m
+    feats = torch.randint(-4, 5, (v, c), generator=gen).float() / 4
+    live = (down >= 0).sum(1)
+    r = int(np.nonzero(live >= 3)[0][0])
+    kids = torch.from_numpy(down[r][down[r] >= 0][:3]).long()
+    feats[kids] = feats[kids[0]].clone()
+    feats[kids, 0] = 5.0
+    far = int(np.nonzero(live >= 2)[0][-1])
+    down[far, np.nonzero(down[far] >= 0)[0][0]] = v + 7
+    rbs = {"down_rb": torch.from_numpy(down),
+           "subm_rb": torch.from_numpy(np.ascontiguousarray(subm))}
+    # (name, function, rulebook, channels, value limit, gradient limit);
+    # a limit of None: bit for bit
+    cases = (("max_pool", max_pool, "down_rb", c, None, None),
+             ("avg_pool", avg_pool, "down_rb", c, POOL_AVG_TOL,
+              POOL_AVG_TOL),
+             ("gather_neighbors", gather_neighbors, "down_rb", c, None,
+              None),
+             ("gather_neighbors", gather_neighbors, "subm_rb", POOL_SUBM_C,
+              None, POOL_SUM_TOL))
+    results = []
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[1]
+        for name, fn, rb_name, width, val_tol, grad_tol in cases:
+            rows = rbs[rb_name].shape[0]
+            cols = rbs[rb_name].shape[1] * width if \
+                name == "gather_neighbors" else width
+            # a seeded cotangent, cheap to make at 21M x 8 entries
+            cgen = torch.Generator().manual_seed(1)
+            cot = (torch.randn(rows, 1, generator=cgen)
+                   * torch.randn(1, cols, generator=cgen))
+            outs = {}
+            for dev in (device, torch.device("cpu")):
+                x = feats[:, :width].to(dev, dtype).clone().requires_grad_(
+                    True)
+                rb = rbs[rb_name].to(dev)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = fn(x, rb)
+                (out * cot.to(dev, dtype)).float().sum().backward()
+                torch.cuda.synchronize()
+                outs[dev.type] = (out.detach().cpu(), x.grad.cpu(),
+                                  (time.perf_counter() - t) * 1e3)
+            (oc, gc, ms), (o, g, cpu_ms) = outs[device.type], outs["cpu"]
+            parts = []
+            for what, got, want, tol in (("values", oc, o, val_tol),
+                                         ("gradients", gc, g, grad_tol)):
+                err = _rel_err(got, want)
+                if tol is None:
+                    ok = torch.equal(got, want)
+                    parts.append(f"{what} bit for bit: {ok} (max|d| / "
+                                 f"max|cpu| {err:.3g})")
+                else:
+                    ok = err <= tol[dname]
+                    parts.append(f"{what} max|d| / max|cpu| {err:.3g} "
+                                 f"(limit {tol[dname]:.3g})")
+                results.append(ok)
+            log(f"pools: {name} over level 0's {rb_name} "
+                f"{tuple(rbs[rb_name].shape)}, {dname}, {width} channels: "
+                f"card vs CPU, {'; '.join(parts)}; out {tuple(o.shape)}; "
+                f"card {ms:.1f} ms, CPU {cpu_ms:.1f} ms (forward + "
+                f"backward, host clock)")
+    ok = torch.from_numpy((down >= 0) & (down < v))
+    vals = torch.where(ok[..., None], feats[torch.where(
+        ok, torch.from_numpy(down), 0).long()], -math.inf)
+    ties = (vals == vals.amax(1, keepdim=True)).sum(1)[ok.any(1)]
+    log(f"pools: level 0 {v} voxels, {down.shape[0]} coarse rows ("
+        f"{int((live == 0).sum())} with no live child), a tie of 3 planted "
+        f"at coarse row {r}, an entry >= V at row {far}; the max's tie "
+        f"counts over the live children (rows x channels with 1, 2, ... "
+        f"tied): {torch.bincount(ties.flatten()).tolist()[1:]}; the batch "
+        f"planned on the host in {plan_s:.3f} s, the subm rulebook in "
+        f"{rb_s:.3f} s")
+    if not all(results):
+        raise AssertionError("pools: the card disagrees with the CPU")
+
+
 def phase_brick(batch, device, gen):
     """The experimental brick engine on the level-0 grid of the bench
     batch (rebuilt from its points: the collate keeps only the plans'
@@ -2476,9 +2751,9 @@ def phase_loop(val_scenes, device):
 
         planned, host, host_s = plan_train_batch(fs_cfg, scenes[:NUM_SCENES],
                                                  "FullySupervised")
-        fs_launches = phase_train("FullySupervised", fs_cfg, planned, host,
-                                  host_s, device, 1, full_checks=False,
-                                  repro=True)
+        fs_launches, _ = phase_train("FullySupervised", fs_cfg, planned,
+                                     host, host_s, device, 1,
+                                     full_checks=False, repro=True)
         from tdwss_torch.models.sparse_encoders import output_width
 
         check_run_sums(host.to(device), output_width(
@@ -3149,11 +3424,20 @@ def phase_plans_free(scenes, device):
 # - the same step in f64: logits, loss and each gradient within
 #   KP_F64_RTOL (relative to max|cpu|, |cpu| and ||cpu||), NaN where the
 #   CPU has NaN; a fault only in the backward (row 0 of every gather
-#   takes no gradient) must break it.
+#   takes no gradient) must break it;
+# - the card's f32 step with the CPU's f32 selections replayed (ties
+#   split as the CPU's step splits them), on the exact-size and on the
+#   padded batch: each gradient within KP_REPLAY_RTOL of the CPU's step
+#   (||d|| / ||cpu||).  With its selections fixed the f32 step differs by
+#   rounding alone: 1.3e-4-1.7e-4 on the exact-size batch (H100, the
+#   basis of the limit, read again in the phase), and so on the padded
+#   one, where a replay of one winner per tie had read 0.73%
+#   (``tools.kpconv_grads --bisect``: the CPU replaying its own).
 KP_LOGITS_TOL = 5e-4
 KP_LOSS_RTOL = 1e-5
 KP_GRAD_RTOL = 0.05
 KP_F64_RTOL = 1e-9
+KP_REPLAY_RTOL = 5e-4
 KP_SPHERES = 8
 KP_STEPS = 3
 KP_LR = 1e-3
@@ -3182,8 +3466,8 @@ def phase_kpconv(scenes, device):
                                            calibrate_neighbors, kpfcnn_loss,
                                            param_groups, segmentation_inputs)
     from tdwss_torch.models.kpconv import ops as kp_ops
-    from tdwss_torch.tools.kpconv_grads import (draw_spheres, grad_errors,
-                                                kpconv_clouds,
+    from tdwss_torch.tools.kpconv_grads import (Selections, draw_spheres,
+                                                grad_errors, kpconv_clouds,
                                                 row0_takes_no_gradient,
                                                 step_outputs)
 
@@ -3250,7 +3534,9 @@ def phase_kpconv(scenes, device):
     state = copy.deepcopy(model.state_dict())
     cpu_state = copy.deepcopy(cpu_model.state_dict())
     t = time.perf_counter()
-    lo_c, loss_c, g_c = model_step(cpu_model, cpu_batch)
+    tape = Selections()             # recording leaves the step as it is
+    with tape.active():
+        lo_c, loss_c, g_c = model_step(cpu_model, cpu_batch)
     cpu_s = time.perf_counter() - t
     lo_g, loss_g, g_g = model_step(model, batch)
     model.load_state_dict(state)
@@ -3283,6 +3569,43 @@ def phase_kpconv(scenes, device):
     if d_lo > KP_LOGITS_TOL or d_loss > KP_LOSS_RTOL or \
             worst[0][0] > KP_GRAD_RTOL:
         failures.append("the card disagrees with the CPU")
+
+    # the card's f32 step with the CPU's f32 selections, exact-size batch
+    # first (the basis of the limit), then the padded one
+    t = time.perf_counter()
+    exact_tape = Selections()
+    cpu_runs = {"exact": step_outputs(cfg, host_exact, "cpu", torch.float32,
+                                      selections=exact_tape),
+                "padded": (lo_c.double(), loss_c,
+                           {n: g.double() for n, g in g_c.items()})}
+    tapes = {"exact": exact_tape, "padded": tape}
+    exact_cpu_s = time.perf_counter() - t
+    for name, hb in (("exact", host_exact), ("padded", host)):
+        sel = Selections(replay=tapes[name])
+        lo_r, loss_r, g_r = step_outputs(cfg, hb, device, torch.float32,
+                                         selections=sel)
+        ref = cpu_runs[name]
+        errs = grad_errors(g_r, ref[2])
+        nan_same = all(torch.equal(torch.isnan(g_r[n]), torch.isnan(b))
+                       for n, b in ref[2].items())
+        log(f"KPConv: f32 step on the card with the CPU's f32 selections "
+            f"replayed, {name} batch (the CPU's step {exact_cpu_s:.2f} s "
+            f"for the exact one): logits max|d| / max|cpu| "
+            f"{(lo_r - ref[0]).abs().max().item() / ref[0].abs().max().item():.3g}"
+            f", loss relative {abs(loss_r - ref[1]) / abs(ref[1]):.3g}; "
+            f"gradients ||d|| / ||cpu|| up to {errs[0][0]:.3g} (limit "
+            f"{KP_REPLAY_RTOL}, from the exact-size readings), largest: "
+            + ", ".join(f"{n} {a:.3g} ({m:.3g})" for a, m, n in errs[:3])
+            + f"; NaN sites the same: {nan_same}; the card's own choices "
+            f"that differ from the CPU's: " + ", ".join(
+                f"{k} {sel.flips[k]} of {sel.entries[k]}"
+                for k in sel.entries) + "; the CPU's max / min reductions "
+            "that tie (split by the replay as by amax / amin): " + ", ".join(
+                f"{k} {v}" for k, v in tapes[name].ties.items()))
+        if errs[0][0] > KP_REPLAY_RTOL or not nan_same:
+            failures.append(f"the card's f32 step with the CPU's "
+                            f"selections disagrees on the {name} batch")
+    del cpu_runs, tapes, tape, exact_tape
 
     t = time.perf_counter()
     ref64 = step_outputs(cfg, host, "cpu", torch.float64)
@@ -3500,7 +3823,9 @@ MASK_TOL = 1e-5                    # of max|cpu mask|
 MASK_IMAGES = 8
 BOX_VIEWS = 3
 BOX_RADIUS, BOX_NSAMPLE = 4.0, 3
-BOX_CPU_POINTS = 12_000            # points of the boxes held against the CPU
+BOX_CPU_POINTS = 40_000            # points of the boxes held against the CPU
+BOX_SAMPLE_SEED = 0                # the seeded draw of those boxes
+BOX_STRATA = 4                     # quartiles of proposal order and of size
 FLIP_ULPS = 8                      # a flipped pair's |d2 - r^2| in ulps of r^2
 
 
@@ -3511,6 +3836,46 @@ def _rel_err(got, want):
     g = got.detach().to("cpu", torch.float64)
     w = want.detach().to("cpu", torch.float64)
     return ((g - w).abs().max() / w.abs().max().clamp_min(1e-30)).item()
+
+
+def box_sample(inside, budget, seed):
+    """The boxes held against the CPU: a seeded sample of the boxes with
+    points, stratified by proposal order and by size (BOX_STRATA
+    quantiles of each), within ``budget`` points in all.  It starts with
+    the largest box that fits the budget, then draws one box from each
+    (order, size) cell in rounds, each a seeded pick among the cell's
+    boxes that still fit, until no cell has one: the cells of the smaller
+    sizes first (so that the large boxes do not take the budget before
+    every stratum has its box), those of one size in a seeded order.
+    Returns (indices in proposal order, points, the order and size strata
+    they cover, the largest box that fits)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    boxes = [i for i, n in enumerate(inside) if n]
+    by_size = sorted(boxes, key=lambda i: (inside[i], i))
+    size_q = {i: r * BOX_STRATA // len(boxes) for r, i in enumerate(by_size)}
+    order_q = {i: r * BOX_STRATA // len(boxes) for r, i in enumerate(boxes)}
+    fits = [i for i in boxes if inside[i] <= budget]
+    largest = max(fits, key=lambda i: (inside[i], -i))
+    held, total = {largest}, inside[largest]
+    cells = [(o, z) for z in range(BOX_STRATA)
+             for o in rng.permutation(BOX_STRATA)]
+    added = True
+    while added:
+        added = False
+        for o, z in cells:
+            members = [i for i in boxes
+                       if (order_q[i], size_q[i]) == (o, z)
+                       and i not in held and total + inside[i] <= budget]
+            if members:
+                i = members[int(rng.integers(len(members)))]
+                held.add(i)
+                total += inside[i]
+                added = True
+    held = sorted(held)
+    return (held, total, sorted({order_q[i] for i in held}),
+            sorted({size_q[i] for i in held}), largest)
 
 
 def synthetic_images(n, size, seed):
@@ -3779,16 +4144,25 @@ def phase_offline(scenes, device):
         raise AssertionError(f"offline: bad Box2Mask masks "
                              f"{tuple(masks.shape)}")
     # The CPU's ball query scans (pixels x points in reach) pairs, minutes
-    # for every box of the scene: the boxes are held against the CPU in
-    # proposal order up to BOX_CPU_POINTS points in all.
+    # for every box of the scene: a seeded sample of the boxes, spread
+    # over proposal order and size, is held against the CPU, up to
+    # BOX_CPU_POINTS points in all.
     inside = [int((np.all(xyz[0] <= c[3:6], -1)
                    & np.all(xyz[0] >= c[:3], -1)).sum())
               for c in corners[0]]
-    held, total = [], 0
-    for i, n in enumerate(inside):
-        if n and total + n <= BOX_CPU_POINTS:
-            held.append(i)
-            total += n
+    held, total, orders, sizes, largest = box_sample(
+        inside, BOX_CPU_POINTS, BOX_SAMPLE_SEED)
+    log(f"offline Box2Mask: boxes held against the CPU (seed "
+        f"{BOX_SAMPLE_SEED}, {BOX_STRATA} strata of proposal order x size, "
+        f"{BOX_CPU_POINTS} points at most): {held} of "
+        f"{sum(1 for n in inside if n)} with points, holding "
+        f"{[inside[i] for i in held]} points ({total} in all); order "
+        f"strata {orders}, size strata {sizes}; the largest box that fits, "
+        f"{largest} ({inside[largest]} points), held: {largest in held}")
+    if (len(orders) < BOX_STRATA or len(sizes) < BOX_STRATA
+            or largest not in held):
+        raise AssertionError("offline: the boxes held against the CPU are "
+                             "not spread over the proposals")
     sub = corners[:, held]
     t = time.perf_counter()
     sub_masks = fronts[str(device)](xyz, feats, sub, OFFLINE_RES, theta, phi)
@@ -3817,7 +4191,7 @@ def phase_offline(scenes, device):
         f"{box_cpu_ms:.1f} ms; their masks card vs CPU outside the flipped "
         f"rows {box_err:.3g}, with the CPU's indices {replay_err:.3g} "
         f"(limit {MASK_TOL})")
-    if (len(held) < 2 or sub_masks.shape != cpu_masks.shape
+    if (sub_masks.shape != cpu_masks.shape
             or box_err > MASK_TOL or replay_err > MASK_TOL):
         raise AssertionError("offline: Box2Mask on the card disagrees with "
                              "the CPU")
@@ -4012,20 +4386,24 @@ def main() -> int:
             record_dw_shapes(dw_shapes):
         val_launches = phase_main(cfg, scenes, batch.plans, batch, device)
         unet_batch = plan_train_batch(cfg, scenes, "UNet")
-        paths = {"validate": val_launches,
-                 "UNet": phase_train("UNet", cfg, *unet_batch, device,
-                                     TRAIN_STEPS, full_checks=True)}
-        paths["Narrow"] = phase_train("Narrow", narrow_cfg, *narrow_batch,
-                                      device, TRAIN_STEPS, full_checks=False)
+        paths = {"validate": val_launches}
+        paths["UNet"], _ = phase_train("UNet", cfg, *unet_batch, device,
+                                       TRAIN_STEPS, full_checks=True)
+        paths["Narrow"], _ = phase_train("Narrow", narrow_cfg, *narrow_batch,
+                                         device, TRAIN_STEPS,
+                                         full_checks=False)
         phase_unpool_times(narrow_batch[1].plans, n_planes, device, gen)
         del narrow_batch
         fcnet_batch = plan_train_batch(fcnet_cfg, scenes, "FCNet")
-        paths["FCNet"] = phase_train("FCNet", fcnet_cfg, *fcnet_batch,
-                                     device, 1, full_checks=False)
+        paths["FCNet"], fcnet_cut = phase_train("FCNet", fcnet_cfg,
+                                                *fcnet_batch, device, 1,
+                                                full_checks=False)
         del fcnet_batch
         paths["Text"] = phase_text(scenes, device)
+    paths["FCNet at its own size"] = phase_own_size(fcnet_cut)
     phase_profile(cfg, unet_batch[1], device, args.trace_dir)
     del unet_batch
+    phase_pools(scenes, device, gen)
     n = phase_fwd_sweep(shapes, device, gen)
     log(f"forward sweep: {n} shapes held against the plain versions")
     del shapes

@@ -280,4 +280,10 @@ def load_config(path: str, **overrides: Any) -> Config:
         else:
             flat[key] = value
     flat.update(overrides)
-    return _build(Config, flat)
+    return config_from_dict(flat)
+
+
+def config_from_dict(raw: Dict[str, Any]) -> Config:
+    """A :class:`Config` from a flat dict (nested dicts for its
+    sections), skipping keys the port does not read."""
+    return _build(Config, raw)

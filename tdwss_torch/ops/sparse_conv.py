@@ -15,6 +15,9 @@ Routes, as in the reference:
   plans-free branch (plain torch: the rulebook gather-GEMM with a
   backward of its own, :class:`_RulebookConv`; the rest differentiable
   as written).
+- :func:`gather_neighbors`, :func:`max_pool` and :func:`avg_pool` are
+  the reference's plain gathers over a rulebook (no model calls them;
+  plain torch, as the reference's are plain XLA).
 
 Windows and spill tiers together are an exact cover of the rulebook, so
 every route computes ``out[v] = sum_k feats[rb[v, k]] @ W[k]``.  The
@@ -52,6 +55,13 @@ def _gather_rows(feats: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     ok = (idx >= 0) & (idx < n)
     g = feats[torch.where(ok, idx, torch.zeros_like(idx)).long()]
     return g * ok.reshape(ok.shape + (1,) * (g.dim() - ok.dim())).to(g.dtype)
+
+
+def gather_neighbors(feats: torch.Tensor, rulebook: torch.Tensor
+                     ) -> torch.Tensor:
+    """(V, Cin), (Vo, K) -> (Vo, K*Cin); a missing neighbour (-1, or an
+    entry >= V) reads zeros."""
+    return _gather_rows(feats, rulebook).reshape(rulebook.shape[0], -1)
 
 
 def _gather_matmul_impl(feats: torch.Tensor, rulebook: torch.Tensor,
@@ -678,6 +688,36 @@ def unpool(coarse_feats: torch.Tensor, parent: torch.Tensor,
     if fine_valid is not None:
         out = torch.where(fine_valid[:, None], out, torch.zeros_like(out))
     return out
+
+
+def max_pool(fine_feats: torch.Tensor, down_rb: torch.Tensor
+             ) -> torch.Tensor:
+    """scn.MaxPooling (filter == stride): the max over each coarse voxel's
+    children in ``down_rb`` (Vc, f^3) -> (Vc, C).  A missing child reads
+    the dtype's ``finfo.min`` and an output left at it (no live child
+    above it) is 0.  ``torch.amax`` splits the gradient equally among
+    tied maxima, as ``jnp.max``'s does (``torch.max(dim)`` would route
+    it to one)."""
+    neg = torch.finfo(fine_feats.dtype).min
+    n = fine_feats.shape[0]
+    live = ((down_rb >= 0) & (down_rb < n))[..., None]
+    g = torch.where(live, _gather_rows(fine_feats, down_rb),
+                    torch.full((), neg, dtype=fine_feats.dtype,
+                               device=fine_feats.device))      # (Vc, K, C)
+    out = torch.amax(g, dim=1)
+    return torch.where(out == neg, torch.zeros_like(out), out)
+
+
+def avg_pool(fine_feats: torch.Tensor, down_rb: torch.Tensor
+             ) -> torch.Tensor:
+    """scn.AveragePooling: the sum in f32 over each coarse voxel's
+    gathered children divided by max(count, 1), where ``count`` counts
+    the entries ``down_rb >= 0`` (an entry >= V counts and reads 0, as in
+    the reference) -> (Vc, C) in the input's dtype."""
+    g = _gather_rows(fine_feats, down_rb)
+    cnt = (down_rb >= 0).float().sum(dim=1)
+    summed = g.float().sum(dim=1)
+    return (summed / cnt.clamp_min(1.0)[:, None]).to(fine_feats.dtype)
 
 
 def wg_conv_apply(feats: torch.Tensor, weight: torch.Tensor, wg_fwd,

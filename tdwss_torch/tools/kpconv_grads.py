@@ -2,6 +2,7 @@
 the CPU, and where the distance comes from.
 
     python3 -m tdwss_torch.tools.kpconv_grads [--device cuda] [--spheres 8]
+                                              [--bisect FILE]
 
 Builds the batch of ``chip_smoke.py``'s KPConv phase (the synthetic
 scenes grid-subsampled at ``first_subsampling_dl``, spheres drawn by
@@ -28,6 +29,11 @@ Then two readings:
   rounding alone.
 
 The basis of the KPConv phase's limits in ``chip_smoke.py``.
+
+With ``--bisect FILE`` it runs :func:`bisect` in place of all this:
+every module's output and gradient tapped (:class:`Taps`) in f32 steps
+that should agree, and the first tensor where the padded batch's
+distance exceeds the exact batch's tenfold.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import math
 import time
 
 import numpy as np
@@ -86,30 +93,58 @@ def row0_takes_no_gradient(x, idx, fill):
         (1, x.shape[1]), fill)]), padding_idx=0)
 
 
-class Selections:
-    """The selections of one step in call order: each max pool's winners,
-    each linear influence's cut at 0, each leaky ReLU's sign, each
-    deformable conv's closest neighbour per kernel point (``min_d2``).
-    Without ``replay`` a step records its own and computes as it does
-    without this; with ``replay`` (another step's record) it takes
-    those, and counts per kind the entries where its own choice differs.
-    The regulariser's clamps are not replayed (its gradient is
-    continuous across them)."""
+def _tied(values, ties, reduce, dim):
+    """``reduce`` (amax or amin) of ``values`` over ``dim`` restricted to
+    the entries of ``ties`` (another step's tie set), with ``reduce``'s own
+    backward: the gradient split equally among those entries.  On the
+    step that recorded ``ties`` this is ``reduce(values, dim)`` bit for
+    bit, value and gradient."""
+    fill = torch.finfo(values.dtype).min if reduce is torch.amax else \
+        torch.finfo(values.dtype).max
+    out = reduce(torch.where(ties, values, fill), dim=dim).detach()
+    w = ties.to(values.dtype)
+    return out + ((values - values.detach()) * w).sum(dim) / w.sum(dim)
 
-    def __init__(self, replay: "Selections | None" = None):
+
+class Selections:
+    """The selections of one step in call order: each max pool's tied
+    winners, each linear influence's side of its cut at 0 (above, at, or
+    below), each leaky ReLU's sign, each deformable conv's tied closest
+    neighbours per kernel point (``min_d2``).  Without ``replay`` a step
+    records its own and computes as it does without this; with
+    ``replay`` (another step's record) it takes those of the ``kinds``
+    given (all if None), computes the others as without this, and counts
+    per kind the entries where its own choice differs.  A replayed tie
+    splits the gradient among the recorded entries as the step's own
+    ``amax`` / ``amin`` / ``maximum`` split it among its own, so a step
+    that replays its own record is the step itself (a replay of one
+    winner per tie moved KPFCNN's f32 step on the padded batch by 0.73%
+    of a gradient's norm).  The regulariser's clamps are not replayed
+    (its gradient is continuous across them)."""
+
+    KINDS = ("max pool", "influence cut", "closest point", "leaky ReLU")
+
+    def __init__(self, replay: "Selections | None" = None, kinds=None):
         self.seen, self.replay = [], replay
+        self.kinds = set(self.KINDS if kinds is None else kinds)
         self.flips = collections.Counter()
         self.entries = collections.Counter()
+        self.ties = collections.Counter()     # recorded max / min ties
 
-    def _choose(self, kind, own):
+    def _choose(self, kind, own, tie_dim=None):
+        """The replayed choice, or None where the step computes its own.
+        ``own`` is a tie set over ``tie_dim`` where one is given: a
+        recording counts the reductions whose max or min ties."""
         i = len(self.seen)
         self.seen.append(own.cpu() if self.replay is None else None)
         if self.replay is None:
-            return own
+            if tie_dim is not None:
+                self.ties[kind] += int((own.sum(tie_dim) > 1).sum())
+            return None
         ref = self.replay.seen[i].to(own.device)
         self.flips[kind] += int((ref != own).sum())
         self.entries[kind] += own.numel()
-        return ref
+        return ref if kind in self.kinds else None
 
     @contextlib.contextmanager
     def active(self):
@@ -123,20 +158,25 @@ class Selections:
 
         def pool(x, inds):
             g = kp_ops.gather_feats(x, inds)
-            win = self._choose("max pool", torch.argmax(g, dim=1))
-            if self.replay is None:
+            ties = self._choose("max pool",
+                                g == torch.amax(g, dim=1, keepdim=True), 1)
+            if ties is None:
                 return torch.amax(g, dim=1)
-            return torch.gather(g, 1, win[:, None]).squeeze(1)
+            return _tied(g, ties, torch.amax, 1)
 
         def infl(sq, kp_extent, influence, aggregation):
             if influence != "linear":
                 return influences(sq, kp_extent, influence, aggregation)
             lin = 1.0 - torch.sqrt(sq) / kp_extent
-            keep = self._choose("influence cut", lin > 0)
-            if self.replay is None:
+            side = self._choose("influence cut", torch.sign(lin))
+            if side is None:
                 return influences(sq, kp_extent, influence, aggregation)
+            # torch.maximum(lin, 0): all of the gradient above the cut,
+            # half of it at the cut, none below
+            kept = torch.where(side > 0, lin, torch.where(
+                side == 0, 0.5 * lin, torch.zeros_like(lin)))
             return (influences(sq, kp_extent, "constant", aggregation)
-                    * torch.where(keep, lin, 0.0).permute(0, 2, 1))
+                    * kept.permute(0, 2, 1))
 
         def sq_distances(rel, kp):
             last["sq"] = distances(rel, kp)
@@ -145,15 +185,16 @@ class Selections:
         def aux(min_d2=None, deformed_kp=None):
             if min_d2 is not None:
                 sq = last["sq"]                          # (N, n, K)
-                near = self._choose("closest point",
-                                    torch.argmin(sq, dim=1))
-                if self.replay is not None:
-                    min_d2 = torch.gather(sq, 1, near[:, None]).squeeze(1)
+                ties = self._choose("closest point",
+                                    sq == torch.amin(sq, dim=1,
+                                                     keepdim=True), 1)
+                if ties is not None:
+                    min_d2 = _tied(sq, ties, torch.amin, 1)
             return kp_aux(min_d2, deformed_kp)
 
         def relu(x, negative_slope=0.01, inplace=False):
             pos = self._choose("leaky ReLU", x > 0)
-            if self.replay is None:
+            if pos is None:
                 return leaky(x, negative_slope)
             return torch.where(pos, x, negative_slope * x)
 
@@ -168,11 +209,53 @@ class Selections:
             F.leaky_relu = leaky
 
 
-def step_outputs(cfg, host, device, dtype, take=None, selections=None):
+class Taps:
+    """Every module's output (and a KPConv layer's ``min_d2``) in call
+    order, with the gradient that reaches it, kept on the CPU: the points
+    at which two steps are compared tensor by tensor."""
+
+    def __init__(self):
+        self.order, self.out, self.grad = [], {}, {}
+
+    def _keep(self, key, t):
+        if not (torch.is_tensor(t) and t.is_floating_point()):
+            return
+        self.order.append(key)
+        self.out[key] = t.detach().cpu().clone()
+        if t.requires_grad:
+            t.register_hook(lambda g: self.grad.__setitem__(
+                key, g.detach().cpu().clone()))
+
+    @contextlib.contextmanager
+    def active(self, model):
+        calls = collections.Counter()
+
+        def hook(name, module, inputs, output):
+            key = f"{name}#{calls[name]}"
+            calls[name] += 1
+            first = output[0] if isinstance(output, tuple) else output
+            self._keep(key, first)
+            if isinstance(output, tuple) and len(output) == 2 and \
+                    hasattr(output[1], "min_d2"):          # a KPConvAux
+                self._keep(key + ".min_d2", output[1].min_d2)
+
+        handles = [m.register_forward_hook(
+            lambda mod, i, o, n=name: hook(n, mod, i, o))
+            for name, m in model.named_modules() if name]
+        try:
+            yield self
+        finally:
+            for h in handles:
+                h.remove()
+
+
+def step_outputs(cfg, host, device, dtype, take=None, selections=None,
+                 taps=None):
     """One training forward and backward of ``KPFCNN(cfg, seed=0)`` in
     ``dtype`` on ``device``: (logits, loss, {name: gradient}) on the CPU
     in f64.  ``take`` stands in for ``ops._take_fill`` (a planted
-    fault); ``selections`` records or replays the step's selections."""
+    fault); ``selections`` records or replays the step's selections;
+    ``taps`` (:class:`Taps`) keeps every module's output and gradient."""
     from tdwss_torch.models.kpconv import KPFCNN, kpfcnn_loss
     from tdwss_torch.models.kpconv import ops as kp_ops
 
@@ -184,7 +267,9 @@ def step_outputs(cfg, host, device, dtype, take=None, selections=None):
     kp_ops._take_fill = take or saved
     try:
         with (selections.active() if selections is not None
-              else contextlib.nullcontext()):
+              else contextlib.nullcontext()), \
+                (taps.active(model) if taps is not None
+                 else contextlib.nullcontext()):
             logits, auxes = model(b, train=True)
             loss = kpfcnn_loss(logits, b.labels, auxes, cfg)
             loss.backward()
@@ -211,6 +296,162 @@ def grad_errors(got, ref):
     return sorted(rows, reverse=True)
 
 
+def tensor_distance(got, ref, rows=None):
+    """(||d|| / ||ref||, max|d| / max|ref|) over the entries where both
+    are finite, within ``rows`` (a bool mask of the leading dim) if
+    given; (nan, nan) where no entry is left."""
+    got, ref = got.double(), ref.double()
+    fin = torch.isfinite(got) & torch.isfinite(ref)
+    if rows is not None:
+        fin &= rows.reshape((-1,) + (1,) * (ref.dim() - 1))
+    if not fin.any():
+        return math.nan, math.nan
+    d, r = got[fin] - ref[fin], ref[fin]
+    return (torch.linalg.vector_norm(d).item()
+            / max(torch.linalg.vector_norm(r).item(), 1e-300),
+            d.abs().max().item() / max(r.abs().max().item(), 1e-300))
+
+
+def compare_taps(got: Taps, ref: Taps, valids):
+    """Per tapped tensor in call order: (key, shape, forward distance
+    over all rows, over the valid rows, gradient distance over all rows,
+    over the valid rows, non-finite entries that differ).  The valid rows
+    are those of the layer whose capacity is the tensor's leading dim."""
+    by_len = {}
+    for v in valids:
+        by_len.setdefault(v.shape[0], torch.as_tensor(v).bool())
+    rows = []
+    for key in ref.order:
+        a, b = got.out[key], ref.out[key]
+        valid = by_len.get(b.shape[0]) if b.dim() else None
+        ga, gb = got.grad.get(key), ref.grad.get(key)
+        nonfinite = int((torch.isfinite(a) != torch.isfinite(b)).sum())
+        grads = ((math.nan,) * 2,) * 2
+        if ga is not None and gb is not None:
+            nonfinite += int((torch.isfinite(ga) != torch.isfinite(gb)).sum())
+            grads = (tensor_distance(ga, gb),
+                     tensor_distance(ga, gb, valid) if valid is not None
+                     else (math.nan, math.nan))
+        rows.append((key, tuple(b.shape), tensor_distance(a, b),
+                     tensor_distance(a, b, valid) if valid is not None
+                     else (math.nan, math.nan), *grads, nonfinite))
+    return rows
+
+
+def first_jump(padded, exact, index, factor=10.0):
+    """The first row of ``padded`` (in the given order) whose distance at
+    ``index`` (2: forward, 4: gradient, over all rows) exceeds ``factor``
+    times the same key's in ``exact`` and 1e-6; None if none does."""
+    base = {r[0]: r[index][0] for r in exact}
+    for r in padded:
+        ex = base.get(r[0], math.nan)
+        got = r[index][0]
+        if math.isfinite(got) and got > 1e-6 and not got <= factor * ex:
+            return r, ex
+    return None
+
+
+def bisect(cfg, batches, dev, out_path):
+    """Where the f32 steps of one batch part, tensor by tensor.  For each
+    batch, from the CPU's f32 step (its selections recorded, every
+    module's output and gradient tapped), against:
+
+    - the same step on the CPU again (is the CPU's step repeatable?);
+    - the CPU's step replaying one kind of its own selections at a time,
+      then all of them (is the replay faithful?);
+    - ``dev``'s step replaying them, also held against the CPU's
+      replaying step (the card against the CPU with one set of
+      selections).
+
+    Prints each comparison's logits, loss and parameter gradients, writes
+    one line per tapped tensor of the tapped comparisons to ``out_path``,
+    and prints per comparison the first tensor (forward in call order,
+    gradient in backward order) whose distance on the padded batch
+    exceeds the exact batch's tenfold."""
+    f32 = torch.float32
+    found = {}
+
+    def write(f, label, rows):
+        f.write(f"## {label}: key, shape, forward (norm, max) all rows / "
+                f"valid rows, gradient (norm, max) all rows / valid rows, "
+                f"non-finite entries that differ\n")
+        for r in rows:
+            f.write(f"{r[0]} {r[1]} fwd {r[2][0]:.3g} {r[2][1]:.3g} / "
+                    f"{r[3][0]:.3g} {r[3][1]:.3g} grad {r[4][0]:.3g} "
+                    f"{r[4][1]:.3g} / {r[5][0]:.3g} {r[5][1]:.3g} "
+                    f"nonfinite {r[6]}\n")
+
+    def params(label, run, ref):
+        _report(label, run, ref)
+        errs = grad_errors(run[2], ref[2])
+        print(f"{label}: parameters ||d|| / ||ref|| (max|d| / max), largest "
+              f"five: " + ", ".join(f"{n} {a:.3g} ({m:.3g})"
+                                    for a, m, n in errs[:5]), flush=True)
+
+    with open(out_path, "w") as f:
+        for name, host in batches.items():
+            tape, own_taps = Selections(), Taps()
+            own = step_outputs(cfg, host, "cpu", f32, selections=tape,
+                               taps=own_taps)
+            print(f"{name}: the cpu f32 step's reductions whose max or min "
+                  f"ties: " + ", ".join(f"{k} {v}" for k, v in
+                                        tape.ties.items()), flush=True)
+            taps = Taps()
+            again = step_outputs(cfg, host, "cpu", f32, taps=taps)
+            label = f"{name}: cpu f32 again vs cpu f32"
+            params(label, again, own)
+            found[(name, "cpu again")] = rows = compare_taps(
+                taps, own_taps, host.valids)
+            write(f, label, rows)
+            del taps
+            for kind in Selections.KINDS:
+                params(f"{name}: cpu f32 replaying only its own {kind} "
+                       f"selections vs cpu f32", step_outputs(
+                           cfg, host, "cpu", f32,
+                           selections=Selections(tape, [kind])), own)
+            rep_taps = Taps()
+            rep = step_outputs(cfg, host, "cpu", f32,
+                               selections=Selections(tape), taps=rep_taps)
+            label = f"{name}: cpu f32 replaying its own selections vs cpu f32"
+            params(label, rep, own)
+            found[(name, "cpu replay")] = rows = compare_taps(
+                rep_taps, own_taps, host.valids)
+            write(f, label, rows)
+            taps, sel = Taps(), Selections(replay=tape)
+            run = step_outputs(cfg, host, dev, f32, selections=sel,
+                               taps=taps)
+            print(f"{name}: {dev} f32's own selections that differ from the "
+                  f"cpu's: " + ", ".join(f"{k} {sel.flips[k]} of "
+                                         f"{sel.entries[k]}"
+                                         for k in sel.entries), flush=True)
+            for label, ref, ref_taps in (
+                    ("cpu f32", own, own_taps),
+                    ("cpu f32 replaying them", rep, rep_taps)):
+                label = f"{name}: {dev} f32 with the cpu f32 selections vs " \
+                        f"{label}"
+                params(label, run, ref)
+                found[(name, label.split(": ", 1)[1])] = rows = compare_taps(
+                    taps, ref_taps, host.valids)
+                write(f, label, rows)
+            del taps, own_taps, rep_taps
+    for key in sorted({k for _, k in found}):
+        if ("padded", key) not in found or ("exact", key) not in found:
+            continue
+        pad, ex = found[("padded", key)], found[("exact", key)]
+        for what, index, order in (("forward", 2, pad),
+                                   ("gradient", 4, pad[::-1])):
+            hit = first_jump(order, ex, index)
+            if hit is None:
+                print(f"bisect ({key}): no {what} distance on the padded "
+                      f"batch exceeds the exact batch's tenfold", flush=True)
+                continue
+            r, base = hit
+            print(f"bisect ({key}): first {what} jump at {r[0]} {r[1]}: "
+                  f"padded all rows {r[index][0]:.3g} ({r[index][1]:.3g}), "
+                  f"valid rows {r[index + 1][0]:.3g} "
+                  f"({r[index + 1][1]:.3g}); exact {base:.3g}", flush=True)
+
+
 def _report(label, run, ref):
     lo, loss, g = run
     errs = grad_errors(g, ref[2])
@@ -229,6 +470,10 @@ def main() -> int:
     parser.add_argument("--spheres", type=int, default=8)
     parser.add_argument("--scenes", type=int, default=5)
     parser.add_argument("--points", type=int, default=150_000)
+    parser.add_argument("--bisect", metavar="PATH",
+                        help="only tap every module's output and gradient "
+                        "(see bisect) and write the per-tensor lines to "
+                        "PATH")
     args = parser.parse_args()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -248,6 +493,9 @@ def main() -> int:
     batches = {"padded": padded,
                "exact": segmentation_inputs(spheres, cfg, capacities=exact,
                                             neighbor_limits=limits)}
+    if args.bisect:
+        bisect(cfg, batches, dev, args.bisect)
+        return 0
     f32, f64 = torch.float32, torch.float64
     for name, host in batches.items():
         t = time.perf_counter()

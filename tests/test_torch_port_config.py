@@ -16,11 +16,13 @@ import os
 import numpy as np
 import pytest
 
+from tdwss.config import config_from_dict as ref_config_from_dict
 from tdwss.config import load_config as ref_load_config
 from tdwss.models import build_model as ref_build_model
 from tdwss.models.sparse_encoders import embed_length_of as ref_embed_length
 from tdwss.registry import MODEL_REGISTRY
-from tdwss_torch.config import load_config, parse_yaml_subset
+from tdwss_torch.config import (config_from_dict, load_config,
+                                parse_yaml_subset)
 from tdwss_torch.data.collate import train_collate
 from tdwss_torch.data.dataset import expand_subclouds
 from tdwss_torch.data.synthetic import make_dataset
@@ -85,6 +87,29 @@ def test_yaml_subset_reader_reads_every_config_as_pyyaml(path):
     with open(path) as f:
         text = f.read()
     assert parse_yaml_subset(text) == yaml.safe_load(text)
+
+
+@pytest.mark.parametrize("path", CONFIGS, ids=_name)
+def test_config_from_dict_matches_reference(path):
+    """``config_from_dict`` on the flat dict of every config (its sections
+    merged, as ``load_config`` merges them) and on the reference's
+    loaded config as nested dicts: field by field the reference's."""
+    import yaml
+
+    with open(path) as f:
+        raw = yaml.safe_load(f)
+    flat = {}
+    for key, value in raw.items():
+        if isinstance(value, dict) and key.upper() in (
+                "GENERAL", "DATA", "STRUCTURE", "TRAINING", "ENGINE",
+                "PSEUDO_LABEL"):
+            flat.update(value)
+        else:
+            flat[key] = value
+    _same(config_from_dict(flat), ref_config_from_dict(flat))
+    _same(config_from_dict(flat), ref_load_config(path))
+    nested = dataclasses.asdict(ref_load_config(path))
+    _same(config_from_dict(nested), ref_config_from_dict(nested))
 
 
 def test_yaml_subset_reader_edge_cases():

@@ -33,6 +33,28 @@ print("ok", len(sys.argv) - 1)
 """
 
 
+_PACKAGES = r"""
+import inspect, sys, torch
+import tdwss_torch.ops, tdwss_torch.models, tdwss_torch.engine
+import tdwss_torch.parallel
+from tdwss_torch.ops import (voxelize, build_plans, subm_conv_apply,
+                             devoxelize, segment_mean_by_batch, max_pool,
+                             gather_neighbors)
+from tdwss_torch.models import build_model, MultiLabel
+from tdwss_torch.engine import Trainer, validate
+from tdwss_torch.parallel import average_gradients
+for obj in (voxelize, build_plans, subm_conv_apply, devoxelize,
+            segment_mean_by_batch, max_pool, gather_neighbors, build_model,
+            validate, average_gradients):
+    assert inspect.isfunction(obj), obj
+assert inspect.isclass(MultiLabel) and inspect.isclass(Trainer)
+from tdwss_torch.ops import windowed
+assert not windowed._libs, "a kernel was built at import"
+assert not torch.cuda.is_initialized()
+print("ok packages")
+"""
+
+
 def _modules():
     names = ["tdwss_torch"]
     for info in pkgutil.walk_packages(tdwss_torch.__path__, "tdwss_torch."):
@@ -69,11 +91,25 @@ def test_port_modules_import_without_jax_flax_yaml_tdwss():
                 "tdwss_torch.models.transformer",
                 "tdwss_torch.models.clip_import", "tdwss_torch.convert",
                 "tdwss_torch.parallel", "tdwss_torch.parallel.dp",
-                "tdwss_torch.ops.coords"):
+                "tdwss_torch.ops.coords", "tdwss_torch.ops",
+                "tdwss_torch.models", "tdwss_torch.engine"):
         assert mod in names
     res = _run(names)
     assert res.returncode == 0, res.stderr[-3000:]
     assert res.stdout.strip() == f"ok {len(names)}"
+
+
+def test_packages_export_without_jax_flax_yaml_tdwss():
+    """The four packages import alone, their exports are functions and
+    classes (``tdwss_torch.ops.voxelize`` is the function), and importing
+    them builds no kernel and starts no CUDA context."""
+    probe = _PROBE.split("for name in sys.argv")[0] + _PACKAGES
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", probe % (BLOCKED,)],
+                         capture_output=True, text=True, cwd=REPO, env=env,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.strip() == "ok packages"
 
 
 def test_chip_smoke_imports_without_jax_flax_yaml_tdwss():

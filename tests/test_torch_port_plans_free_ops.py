@@ -16,9 +16,10 @@ import torch
 
 from tdwss_torch.ops import coords as tc
 from tdwss_torch.ops import plan as tp
-from tdwss_torch.ops import voxelize as tv
 
-# tdwss.ops re-exports functions under these modules' names
+# tdwss.ops and tdwss_torch.ops re-export functions under these modules'
+# names
+tv = importlib.import_module("tdwss_torch.ops.voxelize")
 rc = importlib.import_module("tdwss.ops.coords")
 rp = importlib.import_module("tdwss.ops.plan")
 rv = importlib.import_module("tdwss.ops.voxelize")
