@@ -40,7 +40,12 @@ offline tools (GSS proposals, boxes in the train batch, the projector,
    path, against their plain versions in bf16 and in f32, timed as in 3;
    K6 (windowed_bwd_sub) at the bench UNet's widest subm conv and at
    Narrow's widest level, in bf16 and f32, bit for bit twice, timed (K2,
-   K3, K5 and K6 in samples of BACK_TO_BACK calls back to back);
+   K3, K5 and K6 in samples of BACK_TO_BACK calls back to back); the
+   spill kernels K8 (spill_apply) and K9 (spill_dw, both orientations)
+   on the bench plans' own spill entries at level 0 (32 -> 32) and at
+   the widest cross-level convs (192 -> 224, 224 -> 192), in bf16 and
+   f32, each twice bit for bit, K8's identity form at an unpool, timed
+   at level 0;
 5. validation: ``validate`` (2 vote repetitions) with the launch counts
    set to 0 just before and read just after, equal to what the plans
    route to each kernel, every K1/K4 launch on the tensor-core body (the
@@ -118,8 +123,8 @@ offline tools (GSS proposals, boxes in the train batch, the projector,
     (torch.profiler, host and card): the top device operations by total
     time, the device's idle share over the traced window, and the device
     time by category (the hand-written kernels, the forward's batch norm,
-    the spill tiers' segmented sums, the conv backward around the
-    kernels, the kernel wrappers' own ops, each read from the program's
+    the conv backward around the kernels, the kernel wrappers' own ops
+    (the spill kernels' included), each read from the program's
     ``tdwss.*`` spans; Adam, casts and copies, other forward and backward
     ops); the trace goes to ``<--trace-dir>/trace.json.gz`` (default
     ``exp/chip_smoke/``), the program's spans to ``trace.spans.json``; then
@@ -174,7 +179,7 @@ offline tools (GSS proposals, boxes in the train batch, the projector,
 14. plans-free: the bench UNet with ``engine.host_plans: false`` (the
     points voxelized and every level's rulebooks built on the card, the
     convs on the rulebook routes): with the launch counts set to 0 just
-    before and read just after (K1-K7 must stay 0), ``validate`` (1 rep),
+    before and read just after (K1-K9 must stay 0), ``validate`` (1 rep),
     the logits of the rep-1 batch, 2 training steps and a warm step with
     no synchronising call; the logits against the host-planned path on
     the same points (bf16 2^-7, f32 1e-4 of max|host|) and the first
@@ -223,7 +228,7 @@ offline tools (GSS proposals, boxes in the train batch, the projector,
     BOX_CPU_POINTS; ball-query indices equal, or each flip a distance
     within a few ulps of the radius and the masks held with the CPU's
     indices; masks within 1e-5); ms and peak memory of each;
-18. one JSON line with the numbers of every ported kernel (K1-K7, each
+18. one JSON line with the numbers of every hand-written kernel (K1-K9, each
     with its launches over the main paths, the loop, the brick path and
     the DP, plans-free, remat and offline paths, 0 included), the card
     line from ``nvidia-smi``, and the result line.
@@ -281,8 +286,8 @@ LOGITS_MAX_TOL, LOGITS_MEAN_TOL = 0.05, 0.01
 #   backward, is run again through the plain versions on the same
 #   inputs; dfeats within KERNEL_TOL (bf16) or KERNEL_TOL_F32, dW within
 #   DW_TOL.
-# - Reproducibility: the kernels' dW partials and the spill tiers'
-#   segmented sums add in a fixed order, so two bf16 steps through the
+# - Reproducibility: the kernels' dW partials and the spill kernels'
+#   sums (K8, K9) add in a fixed order, so two bf16 steps through the
 #   kernels give every gradient tensor bit for bit, with no switch of
 #   PyTorch's set.
 # - The whole step: the loss within 1e-2 relative in bf16 and 1e-5 in
@@ -469,6 +474,7 @@ def phase_build():
             "backward kernels": lambda: windowed.build("bwd"),
             "fused subm backward kernel": lambda: windowed.build("bwd_sub"),
             "block gather kernel": lambda: windowed.build("gather"),
+            "spill kernels": lambda: windowed.build("spill"),
             "planner": native.build}
     threads = [threading.Thread(target=run, args=item)
                for item in jobs.items()]
@@ -482,7 +488,8 @@ def phase_build():
     for name, (path, secs) in results.items():
         log(f"build {name}: {secs:.2f} s -> {os.path.relpath(path, HERE)}")
     for name in ("forward kernels", "backward kernels",
-                 "fused subm backward kernel", "block gather kernel"):
+                 "fused subm backward kernel", "block gather kernel",
+                 "spill kernels"):
         with open(results[name][0] + ".log") as f:
             lines = f.read().splitlines()
         for i, ln in enumerate(lines):
@@ -777,6 +784,135 @@ def phase_k6(cases):
     return rows[0]
 
 
+def phase_spill(plans, deep, m, device, gen):
+    """K8 (spill_apply) and K9 (spill_dw) against their plain versions on
+    the bench plans' own spill layouts: level 0's subm plan at m -> m and
+    the widest cross-level convs, level ``deep``'s down map ((deep + 1) m
+    -> (deep + 2) m) and up map (the reverse; where the up map has no
+    spill entries, as at the bench's level 5, its widths on the down
+    map's entries), in bf16 and f32, K9 in both orientations, each twice
+    bit for bit; K8's identity form at level 0's up map; timed rows at
+    level 0 in bf16.  Logs every plan's spill entries (the work the
+    kernels take over)."""
+    import torch
+
+    from tdwss_torch.ops import windowed as W
+
+    for i, lvl in enumerate(plans.levels):
+        parts = []
+        for name in ("win", "wg_down", "wg_up"):
+            p = getattr(lvl, name)
+            if p is not None:
+                so = p.spill_order
+                parts.append(f"{name} {so.entries} entries, "
+                             f"{so.owner.shape[0]} owners, "
+                             f"{so.chunk.shape[0] - 1} chunks")
+        log(f"spill tiers, level {i}: {'; '.join(parts)}")
+
+    planes = (deep + 1) * m
+    lvl0, lvld = plans.levels[0], plans.levels[deep]
+    up, up_label = lvld.wg_up, f"level {deep} up"
+    if not up.spill_order.entries:
+        up, up_label = lvld.wg_down, (f"level {deep} down's entries at the "
+                                      "up map's widths")
+    cases = [("level 0 subm", lvl0.win, m, m, True),
+             (f"level {deep} down", lvld.wg_down, planes, planes + m, False),
+             (up_label, up, planes + m, planes, False)]
+    src = "tdwss_torch/csrc/spill.cu"
+    replaces = ("none: port-only, the reference's spill tiers are plain jnp "
+                "(tdwss/ops/sparse_conv.py:317,573)")
+    rows = []
+    for label, plan, cin, cout, subm in cases:
+        so = plan.spill_order.to(device)
+        if not so.entries:
+            raise AssertionError(f"{label}: the plan has no spill entries")
+        k = plan.rb_local.shape[1]
+        v_out = plan.rb_local.shape[0]
+        v_src = v_out if subm else plan.v_src
+        x32 = torch.randn((v_src, cin), generator=gen).to(device)
+        w32 = (torch.randn((k, cin, cout), generator=gen)
+               * (2.0 / (k * cin)) ** 0.5).to(device)
+        base32 = torch.randn((v_out, cout), generator=gen).to(device)
+        d32 = torch.randn((v_out, cout), generator=gen).to(device)
+        dw0 = torch.randn((k, cin, cout), generator=gen).to(device)
+        for dtype, tol in ((torch.bfloat16, KERNEL_TOL),
+                           (torch.float32, KERNEL_TOL_F32)):
+            x, w, base, dout = (t.to(dtype) for t in (x32, w32, base32, d32))
+            tag = (f"{label}: E={so.entries} C={cin} Cout={cout} K={k} "
+                   f"{str(dtype)[6:]}")
+
+            def apply(fn, w=w, x=x, base=base):
+                return fn(x, so.owner, so.start, so.entry, w, base.clone())
+
+            out, ref, out2 = (apply(W.spill_apply),
+                              apply(W.spill_apply_plain),
+                              apply(W.spill_apply))
+            torch.cuda.synchronize()
+            err = check_against_plain(W.K8, out, ref, tag, tol)
+            if not torch.equal(out, out2):
+                raise AssertionError(f"{W.K8} {tag}: two launches differ")
+            orients = ((False, False), (True, True)) if subm else (
+                (False, False), (True, False))
+            for flip, flip_taps in orients:
+                # flipped: feats in the owners' domain, dout in the sources'
+                f_rows, d_rows = (v_out, v_src) if flip else (v_src, v_out)
+                xf = torch.randn((f_rows, cin), generator=gen).to(device,
+                                                                  dtype)
+                df = torch.randn((d_rows, cout), generator=gen).to(device,
+                                                                   dtype)
+
+                def dw(fn, xf=xf, df=df, flip=flip, flip_taps=flip_taps):
+                    return fn(xf, df, so.tap_entry, so.chunk, so.tap_chunk,
+                              dw0.clone(), flip=flip, flip_taps=flip_taps)
+
+                got, want, got2 = (dw(W.spill_dw), dw(W.spill_dw_plain),
+                                   dw(W.spill_dw))
+                torch.cuda.synchronize()
+                e9 = check_against_plain(
+                    W.K9, got - dw0, want - dw0,
+                    f"{tag} flip={flip} flip_taps={flip_taps}", DW_TOL)
+                if not torch.equal(got, got2):
+                    raise AssertionError(f"{W.K9} {tag}: two launches "
+                                         "differ")
+            if label == "level 0 subm" and dtype == torch.bfloat16:
+                scratch = base.clone()
+                rows.append(kernel_row(
+                    W.K8, src, replaces,
+                    lambda: W.spill_apply(x, so.owner, so.start, so.entry, w,
+                                          scratch),
+                    lambda: W.spill_apply_plain(x, so.owner, so.start,
+                                                so.entry, w, scratch),
+                    lambda: W.work_spill_apply(x, so.owner, so.entry, w,
+                                               base),
+                    err, window=BACK_TO_BACK))
+                acc = dw0.clone()
+                rows.append(kernel_row(
+                    W.K9, src, replaces,
+                    lambda: W.spill_dw(x, dout, so.tap_entry, so.chunk,
+                                       so.tap_chunk, acc),
+                    lambda: W.spill_dw_plain(x, dout, so.tap_entry, so.chunk,
+                                             so.tap_chunk, acc),
+                    lambda: W.work_spill_dw(x, dout, so.tap_entry, so.chunk,
+                                            so.tap_chunk),
+                    e9, window=BACK_TO_BACK))
+    # the identity form (the unpools) at level 0's up map
+    up = lvl0.wg_up
+    so = up.spill_order.to(device)
+    x = torch.randn((up.v_src, m), generator=gen).to(device, torch.bfloat16)
+    base = torch.randn((up.rb_local.shape[0], m), generator=gen).to(
+        device, torch.bfloat16)
+    out = W.spill_apply(x, so.owner, so.start, so.entry, None, base.clone())
+    ref = W.spill_apply_plain(x, so.owner, so.start, so.entry, None,
+                              base.clone())
+    torch.cuda.synchronize()
+    if not torch.equal(out, ref):
+        raise AssertionError(f"{W.K8}'s identity form differs from its "
+                             "plain version (a copy and one add each)")
+    log(f"{W.K8} identity form, level 0 up map (E={so.entries}, C={m}, "
+        "bf16): equal to the plain version bit for bit")
+    return rows
+
+
 def check_bodies(label):
     """Every K1 / K4, K2, K3 / K5 and K6 launch counted since the last
     reset went to the tensor-core body (the counted paths run in bf16)."""
@@ -804,28 +940,41 @@ def expected_launches(model, plans, train: bool, reps: int = 1):
     sub-form subm conv takes K6, and any other conv K3 (sub) or K5 (flat)
     on the forward plan for dW and K1 or K4 on the backward plan for
     dfeats, except at the stem, whose input needs no gradient.  An
-    unpool's backward is K1 or K4 on the down plan (no dW).
+    unpool's backward is K1 or K4 on the down plan (no dW).  Every such
+    evaluation of a plan with spill entries also launches K8 (forward,
+    dfeats, unpool) or K9 (dW, on the backward plan on K2's route, else
+    on the forward plan).
     """
     from tdwss_torch.ops import windowed as W
 
     counts = {name: 0 for name in W.launches}
     fwd = {True: W.K1, False: W.K4}
 
+    def spill(name, plan):
+        if plan.spill_order.entries:
+            counts[name] += reps
+
     def conv(plan, bplan, kernel, needs_dfeats=True, subm=False):
         if plan is None:
             return                           # rulebook route: no kernel
         counts[fwd[bool(plan.sub)]] += reps
+        spill(W.K8, plan)
         if not train:
             return
         _, cin, cout = kernel.shape
         if bplan.sub and cin <= GATHER_MAX_C and cout <= GATHER_MAX_C:
             counts[W.K2] += reps
+            spill(W.K9, bplan)
         elif subm and plan.sub:
             counts[W.K6] += reps
+            spill(W.K9, plan)
         else:
             counts[W.K3 if plan.sub else W.K5] += reps
+            spill(W.K9, plan)
             if needs_dfeats:
                 counts[fwd[bool(bplan.sub)]] += reps
+        if needs_dfeats:
+            spill(W.K8, bplan)
 
     enc = model.pc_encoder
     level0 = plans.levels[0]
@@ -850,16 +999,18 @@ def expected_launches(model, plans, train: bool, reps: int = 1):
                 conv(lvl.wg_up, lvl.wg_down, body.up_deconv.kernel)
             else:                            # the unpool: identity weights
                 counts[fwd[bool(lvl.wg_up.sub)]] += reps
+                spill(W.K8, lvl.wg_up)
                 if train:
                     counts[fwd[bool(lvl.wg_down.sub)]] += reps
+                    spill(W.K8, lvl.wg_down)
         body, i = body.inner, i + 1
 
 
 # The kernel entry points the model's routes call (tdwss_torch.ops.
-# sparse_conv's names, which are also the kernels' names K1-K6).
+# sparse_conv's names, which are also the kernels' names K1-K6, K8, K9).
 KERNEL_ENTRIES = ("windowed_matmul_sub", "windowed_matmul",
                   "windowed_bwd_gather", "windowed_dw_sub", "windowed_dw",
-                  "windowed_bwd_sub")
+                  "windowed_bwd_sub", "spill_apply", "spill_dw")
 
 
 @contextlib.contextmanager
@@ -1140,15 +1291,18 @@ def record_level_launches(held, rows):
 
     def make(name, fn):
         def recorded(*args, **kwargs):
-            out = fn(*args, **kwargs)
             ops = [a for a in args if isinstance(a, torch.Tensor)
                    and a.dim() >= 2]
             # features and weights past their rows; plans by their taps
             key = (name, tuple(tuple(a.shape[1:]) if a.is_floating_point()
                                else a.shape[0] for a in ops))
-            if key not in held and any(a.is_floating_point()
-                                       and a.shape[0] == rows for a in ops):
-                held[key] = (keep(args), keep(kwargs), keep(out))
+            first = key not in held and any(
+                a.is_floating_point() and a.shape[0] == rows for a in ops)
+            # kept before the call: K8 and K9 add into an operand in place
+            before = (keep(args), keep(kwargs)) if first else None
+            out = fn(*args, **kwargs)
+            if first:
+                held[key] = (*before, keep(out))
             return out
         return recorded
 
@@ -1173,7 +1327,8 @@ def hold_launches(label, held, device):
     parts = {W.K1: (("out", KERNEL_TOL),), W.K4: (("out", KERNEL_TOL),),
              W.K3: (("dW", DW_TOL),), W.K5: (("dW", DW_TOL),),
              W.K2: (("dfeats", KERNEL_TOL), ("dW", DW_TOL)),
-             W.K6: (("dfeats", KERNEL_TOL), ("dW", DW_TOL))}
+             W.K6: (("dfeats", KERNEL_TOL), ("dW", DW_TOL)),
+             W.K8: (("out", KERNEL_TOL),), W.K9: (("dW", DW_TOL),)}
     for (name, _), (args, kwargs, out) in sorted(held.items(),
                                                   key=lambda kv: str(kv[0])):
         args, kwargs, out = card(args), card(kwargs), card(out)
@@ -1420,8 +1575,8 @@ def phase_train(label, cfg, planned, host, host_s, device, steps,
         return launches, stats
 
     # bf16: two steps through the kernels, every gradient bit for bit
-    # (the dW partials and the spill tiers' segmented sums add in a fixed
-    # order; no switch of PyTorch's is set).
+    # (the dW partials and the spill kernels' sums add in a fixed order;
+    # no switch of PyTorch's is set).
     _, gk2 = loss_and_grads(m16, cfg, batch)
     same16 = all(torch.equal(gk[n], gk2[n]) for n in gk)
     log(f"{label}: one bf16 step twice through the kernels: all "
@@ -1721,15 +1876,14 @@ def list_syncs(fn):
 # routes' backward and the kernel entries, and the scopes PyTorch itself
 # records (the optimiser's step, autograd's backward functions).
 _OUR_KERNELS = ("windowed_", "fwd_mma_kernel", "dw_mma_kernel",
-                "reduce_partials_kernel", "block_gather_kernel")
+                "reduce_partials_kernel", "block_gather_kernel", "spill_")
 _SPAN_CATEGORIES = {"tdwss.bn": "batch norm forward",
-                    "tdwss.conv.segment_sum": "spill tiers' segmented sums",
                     "tdwss.conv.backward": "conv backward around the kernels"}
 
 
 def _category(event, kernel_name):
     if any(k in kernel_name for k in _OUR_KERNELS):
-        return "hand-written kernels (K1-K7)"
+        return "hand-written kernels (K1-K9)"
     e = event
     while e is not None:
         name = e.name
@@ -3320,7 +3474,7 @@ def phase_plans_free(scenes, device):
         f"(ended by a synchronise) {', '.join(f'{x:.3f}' for x in free_dev)}"
         f"; peak device memory {peak:.2f} GiB; synchronising calls in a "
         f"warm step: {len(syncs)} sites: {json.dumps(syncs)}; launches "
-        f"(K1-K7) {launches}")
+        f"(K1-K9) {launches}")
 
     failures = []
     if any(launches.values()):
@@ -3728,8 +3882,10 @@ def phase_remat(scenes, device):
             raise AssertionError("engine.remat did not reach the encoder")
         if remat:
             fwd = expected_launches(model, host.plans, train=False)
-            stem = W.K1 if host.plans.levels[0].win.sub else W.K4
-            fwd[stem] -= 1               # the stem is outside the body
+            level0 = host.plans.levels[0].win
+            fwd[W.K1 if level0.sub else W.K4] -= 1   # the stem is outside
+            if level0.spill_order.entries:           # the body
+                fwd[W.K8] -= 1
             per_step = expected_launches(model, host.plans, train=True)
             want = {k: (v + fwd[k]) * REMAT_STEPS
                     for k, v in per_step.items()}
@@ -4336,6 +4492,7 @@ def main() -> int:
     wide = level_case(batch.plans, deep, 2 * planes, planes, device, gen)
     phase_wide(wide)
     rows += phase_bwd_kernels(case, wide)
+    rows += phase_spill(batch.plans, deep, m, device, gen)
     del case
 
     # the FCN configs, cut to the bench batch; their batches are planned

@@ -9,17 +9,18 @@ int32 on the way.  Field meanings are documented on the reference
 classes (``tdwss/ops/plan.py:34,132,176,194``).
 
 The windowed plans carry one field the reference lacks, ``spill_order``
-(:class:`SpillOrder`): each spill tier's entries grouped by the output
-row they add into, built on the host with the plan by the host planner,
-so that the conv routes sum every row's spill contributions in one fixed
-order without atomics (:func:`tdwss_torch.ops.sparse_conv._segment_sum`);
-for a plan made elsewhere without it, the routes group the entries when
-they apply them.
+(:class:`SpillOrder`): the live entries of every spill tier, laid out by
+owner (the output row they add into) and by tap, built on the host with
+the plan by the host planner, so that the spill kernels K8 and K9
+(:mod:`tdwss_torch.ops.windowed`) sum every row's and every tap's spill
+contributions in one fixed order without atomics; for a plan made
+elsewhere without it, the routes build it when they apply the plan.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from dataclasses import dataclass
 from typing import Optional, Sequence, Tuple
 
@@ -94,28 +95,47 @@ class SparseGrid(_Leaves):
         return self.valid.shape[0]
 
 
+# Most entries of one dW chunk of K9 (one tap and tier each): the heavy
+# tier's tap-chunked companion holds chunks of this many entries
+# (tdwss_torch.ops.host_plan._RES_HCHUNK), so its chunks are K9's.
+SPILL_CHUNK = 512
+
+
 @dataclass
 class SpillOrder(_Leaves):
-    """Port-only: the entries of each spill tier of one windowed plan,
-    grouped by owner (the output row they add into).
+    """Port-only: the live entries of every spill tier of one windowed
+    plan, laid out for the spill kernels (K8 ``spill_apply`` and K9
+    ``spill_dw`` in :mod:`tdwss_torch.ops.windowed`).
 
-    For a tier, ``<tier>_owner`` (U,) int32 holds its distinct owners in
-    ascending order and ``<tier>_index`` (U, D) int32 the rows of the
-    tier's entry list that add into each, in entry order; a short group
-    is padded with the entry count (one past the last entry, a zero row).
-    An entry whose owner is outside the plan's output rows belongs to no
-    group.  The tiers are ``ovf`` (``res_ovf``), ``tile``
-    (``res_tile``, flattened) and ``heavy`` (``res_tent`` where the
-    tap-chunked companion is present, else ``res_hent``); None where the
-    plan has no such tier.
+    The tiers are read in the order ``ovf`` (``res_ovf``), ``tile``
+    (``res_tile``, flattened) and ``heavy`` (``res_hent``, or its
+    tap-chunked companion ``res_tent``: the same entries in the same order
+    within an owner and within a tap); an entry is live
+    where its owner (the output row it adds into) lies in the plan's
+    output rows and its tap below the plan's tap count.  All int32.
+
+    By owner (K8): ``owner`` (U,) the distinct owners, ascending;
+    ``start`` (U + 1,) the first row of each owner's entries in
+    ``entry`` (E, 2) [src, tap], which holds them tier by tier, in entry
+    order within a tier.
+
+    By tap (K9): ``tap_entry`` (E, 2) [src, owner], the same entries
+    sorted by tap, tier by tier within a tap, in entry order within a
+    tier; ``chunk`` (NCH + 1, 2) [first row, tier] of each chunk, a run
+    of at most ``SPILL_CHUNK`` entries of one tap and one tier (the last
+    row [E, -1]); ``tap_chunk`` (K + 1,) the first chunk of each tap.
     """
 
-    ovf_owner: Optional[object] = None
-    ovf_index: Optional[object] = None
-    tile_owner: Optional[object] = None
-    tile_index: Optional[object] = None
-    heavy_owner: Optional[object] = None
-    heavy_index: Optional[object] = None
+    owner: Optional[object] = None
+    start: Optional[object] = None
+    entry: Optional[object] = None
+    tap_entry: Optional[object] = None
+    chunk: Optional[object] = None
+    tap_chunk: Optional[object] = None
+
+    @property
+    def entries(self) -> int:
+        return 0 if self.entry is None else int(self.entry.shape[0])
 
 
 def _host(a) -> np.ndarray:
@@ -123,8 +143,10 @@ def _host(a) -> np.ndarray:
 
 
 def owner_groups(owners, v_out: int) -> Tuple[np.ndarray, np.ndarray]:
-    """(owner (U,), index (U, D)) of an entry list's owner column, as in
-    :class:`SpillOrder` (stable: entry order within each owner)."""
+    """(owner (U,), index (U, D)) of an entry list's owner column: the
+    distinct owners in ``[0, v_out)``, ascending, and the rows of the
+    list that add into each, in entry order; a short group is padded
+    with the entry count (one past the last entry)."""
     own = _host(owners).reshape(-1).astype(np.int64)
     rows = np.nonzero((own >= 0) & (own < v_out))[0]
     rows = rows[np.argsort(own[rows], kind="stable")]
@@ -150,24 +172,67 @@ def tile_owners(res_tile, v_out: int) -> np.ndarray:
     return owners.reshape(-1)
 
 
+def _tiers(plan, v_out: int):
+    """Each present spill tier's entries as (owner, tap, src) int32
+    columns, in tier order.  The heavy tier is read from ``res_hent``
+    where present: its live rows are owner-sorted, and the tap-chunked
+    companion holds the same rows sorted stably by tap."""
+    tiers = []
+    if plan.res_ovf is not None:
+        ovf = _host(plan.res_ovf)
+        tiers.append((ovf[:, 0], ovf[:, 1], ovf[:, 2]))
+    if plan.res_tile is not None and plan.res_tile.shape[0]:
+        rt = _host(plan.res_tile)
+        tiers.append((tile_owners(rt, v_out), rt[..., 1].reshape(-1),
+                      rt[..., 2].reshape(-1)))
+    if plan.res_hent is not None:
+        hent = _host(plan.res_hent)
+        tiers.append((hent[:, 0], hent[:, 1], hent[:, 2]))
+    elif plan.res_tent is not None and plan.res_tent.shape[0]:
+        tent = _host(plan.res_tent)
+        ttap = _host(plan.res_ttap)
+        per = tent.shape[0] // max(ttap.shape[0], 1)
+        tiers.append((tent[:, 1], np.repeat(ttap, per), tent[:, 0]))
+    return tiers
+
+
 def spill_order(plan) -> SpillOrder:
     """The :class:`SpillOrder` of a ``Windowed27`` / ``WindowedGather``
     plan, from its host (numpy or CPU tensor) spill tiers."""
-    v_out = plan.rb_local.shape[0]
-    kw = {}
-    if plan.res_ovf is not None:
-        kw["ovf_owner"], kw["ovf_index"] = owner_groups(
-            _host(plan.res_ovf)[:, 0], v_out)
-    if plan.res_tile is not None and plan.res_tile.shape[0]:
-        kw["tile_owner"], kw["tile_index"] = owner_groups(
-            tile_owners(plan.res_tile, v_out), v_out)
-    if plan.res_tent is not None and plan.res_tent.shape[0]:
-        kw["heavy_owner"], kw["heavy_index"] = owner_groups(
-            _host(plan.res_tent)[:, 1], v_out)
-    elif plan.res_hent is not None:
-        kw["heavy_owner"], kw["heavy_index"] = owner_groups(
-            _host(plan.res_hent)[:, 0], v_out)
-    return SpillOrder(**kw)
+    v_out, k = plan.rb_local.shape
+    cols = [[], [], [], []]                       # owner, tap, src, tier
+    for tier, (own, tap, src) in enumerate(_tiers(plan, v_out)):
+        live = (own >= 0) & (own < v_out) & (tap >= 0) & (tap < k)
+        for col, a in zip(cols, (own[live], tap[live], src[live],
+                                 np.full(int(live.sum()), tier, np.int8))):
+            col.append(a)
+    own, tap, src = (np.concatenate(c).astype(np.int32, copy=False) if c
+                     else np.zeros(0, np.int32) for c in cols[:3])
+    tier = np.concatenate(cols[3]) if cols[3] else np.zeros(0, np.int8)
+    # tiers are concatenated in order, so a stable sort keeps each key's
+    # entries tier by tier and in entry order within a tier (the
+    # planners' tiers are owner-sorted runs, which the stable sort merges
+    # in linear time; taps fit int16, which numpy sorts by radix)
+    by_own = np.argsort(own, kind="stable")
+    sown = own[by_own]
+    first = np.flatnonzero(np.diff(sown, prepend=-1))
+    by_tap = np.argsort(tap.astype(np.int16), kind="stable")
+    ttap, ttier = tap[by_tap], tier[by_tap]
+    new_run = np.ones(ttap.size, bool)
+    new_run[1:] = (ttap[1:] != ttap[:-1]) | (ttier[1:] != ttier[:-1])
+    run_first = np.flatnonzero(new_run)
+    run_pos = np.arange(ttap.size) - np.repeat(
+        run_first, np.diff(np.append(run_first, ttap.size)))
+    heads = np.flatnonzero(new_run | (run_pos % SPILL_CHUNK == 0))
+    chunk = np.stack([np.append(heads, ttap.size),
+                      np.append(ttier[heads], -1)], 1)
+    i32 = functools.partial(np.asarray, dtype=np.int32)
+    return SpillOrder(
+        owner=sown[first], start=i32(np.append(first, own.size)),
+        entry=np.stack([src[by_own], tap[by_own]], 1),
+        tap_entry=np.stack([src[by_tap], own[by_tap]], 1),
+        chunk=i32(chunk),
+        tap_chunk=i32(np.searchsorted(ttap[heads], np.arange(k + 1))))
 
 
 def with_spill_order(plan):

@@ -24,9 +24,11 @@ every route computes ``out[v] = sum_k feats[rb[v, k]] @ W[k]``.  The
 windowed subm and cross-level convs are ``torch.autograd.Function``s
 whose backward runs K2 (fused dfeats + dW) or K3/K5 (dW) with K1/K4 on
 the cotangent (dfeats), plus the spill tiers' dW and dfeats (see
-"Backward routes" below).  On a CUDA tensor every windowed evaluation
-launches its kernel; on a CPU tensor the same calls run the kernels'
-plain versions.
+"Backward routes" below).  Every pass adds a plan's spill tiers onto the
+windowed result with one kernel: K8 (``spill_apply``) for a forward or
+a dfeats, K9 (``spill_dw``) for a dW.  On a CUDA tensor every windowed
+evaluation launches its kernel; on a CPU tensor the same calls run the
+kernels' plain versions.
 
 A ``-1`` rulebook entry means "no neighbour": every gather here masks it
 (torch indexing, like numpy, would wrap it to the last row).
@@ -39,8 +41,9 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from tdwss_torch.ops.plan import SpillOrder, owner_groups
-from tdwss_torch.ops.windowed import (windowed_bwd_gather, windowed_bwd_sub,
+from tdwss_torch.ops.plan import owner_groups, spill_order
+from tdwss_torch.ops.windowed import (spill_apply, spill_dw,
+                                     windowed_bwd_gather, windowed_bwd_sub,
                                      windowed_dw, windowed_dw_sub,
                                      windowed_matmul, windowed_matmul_sub)
 from tdwss_torch.utils import profiling
@@ -119,8 +122,47 @@ class _RulebookConv(torch.autograd.Function):
 
 
 # ---------------------------------------------------------------------------
-# Spill tiers: the rulebook entries the windows miss, as (owner, tap, src)
+# Spill tiers: the rulebook entries the windows miss, as (owner, tap, src).
+# The routes add them with K8 and K9 over the plan's ``spill_order``
+# (:func:`_spill_add`, :func:`_spill_dw`).  The functions below evaluate
+# them tier by tier in plain torch, as the reference's functions of the
+# same names do: the tests hold them against the reference, and K8's and
+# K9's plain versions against them.
 # ---------------------------------------------------------------------------
+
+
+def _layout(plan, device):
+    """The plan's :class:`~tdwss_torch.ops.plan.SpillOrder` on ``device``,
+    built now on the host for a plan made without it."""
+    so = plan.spill_order if plan.spill_order is not None else \
+        spill_order(plan)
+    if not isinstance(so.entry, torch.Tensor) or so.entry.device != device:
+        so = so.to(device)
+    return so
+
+
+def _spill_add(feats, plan, w3, out):
+    """``out`` (V_out, Cout) in feats' dtype plus the plan's spill tiers on
+    ``feats`` with weights w3 (K, C, Cout), or the identity where w3 is
+    None: one K8 pass, in place."""
+    so = _layout(plan, feats.device)
+    if so.entries:
+        profiling.count("tdwss.conv.spill_entries", so.entries)
+        spill_apply(feats, so.owner, so.start, so.entry, w3, out)
+    return out
+
+
+def _spill_dw(feats, dout, plan, dw, flip=False, tap_flip=True):
+    """``dw`` (K, C, Cout) f32 plus the plan's spill tiers' dW: one K9
+    pass, in place.  ``flip``: each entry (owner, tap, src) in the flipped
+    orientation, feats[owner] (x) dout[src], into slot K-1-tap (slot tap
+    with ``tap_flip=False``); see ``_res_all_dw``."""
+    so = _layout(plan, feats.device)
+    if so.entries:
+        profiling.count("tdwss.conv.spill_entries", so.entries)
+        spill_dw(feats, dout, so.tap_entry, so.chunk, so.tap_chunk, dw,
+                 flip=flip, flip_taps=flip and tap_flip)
+    return dw
 
 
 def _live_entries(n_left, n_right, lrows, taps, rrows, k):
@@ -133,38 +175,29 @@ def _segment_sum(contrib, groups, out_len):
     contribution rows, taken in entry order; other rows are zero.
 
     ``groups`` = (owner (U,), index (U, D)) from
-    :func:`tdwss_torch.ops.plan.owner_groups` (host-built with the plan);
+    :func:`tdwss_torch.ops.plan.owner_groups`;
     a short group's padding points one past the last contribution row,
     which reads zero.  The sum is a fixed sequence of gathers and adds
     and the owners are distinct, so no two writes meet: the result is
     the same bit for bit on every run (``index_add_`` on CUDA adds with
     atomics, in an order that changes from run to run).
     """
-    with profiling.span("tdwss.conv.segment_sum"):
-        out = torch.zeros((out_len, contrib.shape[1]), dtype=torch.float32,
-                          device=contrib.device)
-        owner, index = (torch.as_tensor(g, device=contrib.device)
-                        for g in groups)
-        if owner.shape[0] == 0:
-            return out
-        rows = torch.cat([contrib, contrib.new_zeros((1, contrib.shape[1]))])
-        index = index.long()
-        total = rows[index[:, 0]]
-        for j in range(1, index.shape[1]):
-            total = total + rows[index[:, j]]
-        out[owner.long()] = total
+    out = torch.zeros((out_len, contrib.shape[1]), dtype=torch.float32,
+                      device=contrib.device)
+    owner, index = (torch.as_tensor(g, device=contrib.device)
+                    for g in groups)
+    if owner.shape[0] == 0:
         return out
+    rows = torch.cat([contrib, contrib.new_zeros((1, contrib.shape[1]))])
+    index = index.long()
+    total = rows[index[:, 0]]
+    for j in range(1, index.shape[1]):
+        total = total + rows[index[:, j]]
+    out[owner.long()] = total
+    return out
 
 
-def _groups(owners, out_len, given):
-    """The tier's owner groups: ``given`` (the plan's ``spill_order``
-    pair) when there is one, else built now from ``owners`` on the host."""
-    if given is not None and given[0] is not None:
-        return given
-    return owner_groups(owners, out_len)
-
-
-def _entry_apply(feats, owners, taps, srcs, w3, out_len, groups=None):
+def _entry_apply(feats, owners, taps, srcs, w3, out_len):
     """(out_len, Cout) f32: out[owner] += feats[src] @ w3[tap] over live
     entries, each owner's entries summed in entry order
     (:func:`_segment_sum`).
@@ -182,7 +215,7 @@ def _entry_apply(feats, owners, taps, srcs, w3, out_len, groups=None):
                           device=feats.device)
     for a in range(k):
         contrib += (f * (taps == a).unsqueeze(-1)) @ w[a]
-    return _segment_sum(contrib, _groups(owners, out_len, groups), out_len)
+    return _segment_sum(contrib, owner_groups(owners, out_len), out_len)
 
 
 def _entry_dw(feats, dout, lrows, taps, rrows, k):
@@ -199,7 +232,7 @@ def _entry_dw(feats, dout, lrows, taps, rrows, k):
 
 
 def _res_ovf_apply(feats, res_ovf, ovf_v, ovf_count, w2d, cout,
-                   out_len=None, groups=None):
+                   out_len=None):
     """Compact spill list [v, tap, src] -> (out_len, Cout) f32.
 
     The reference sums each owner's run of entries (``ovf_v`` /
@@ -209,7 +242,7 @@ def _res_ovf_apply(feats, res_ovf, ovf_v, ovf_count, w2d, cout,
     v = out_len if out_len is not None else feats.shape[0]
     w3 = w2d.reshape(-1, feats.shape[-1], cout)
     return _entry_apply(feats, res_ovf[:, 0], res_ovf[:, 1], res_ovf[:, 2],
-                        w3, v, groups)
+                        w3, v)
 
 
 def _tile_entries(res_tile, v_out):
@@ -227,16 +260,16 @@ def _tile_entries(res_tile, v_out):
             res_tile[..., 2].reshape(-1))
 
 
-def _res_tile_apply(feats, res_tile, w2d, cout, v_out, groups=None):
+def _res_tile_apply(feats, res_tile, w2d, cout, v_out):
     """Tile-grouped spills -> (v_out, Cout), feats dtype."""
     owners, taps, srcs = _tile_entries(res_tile, v_out)
     w3 = w2d.reshape(-1, feats.shape[-1], cout)
-    return _entry_apply(feats, owners, taps, srcs, w3, v_out,
-                        groups).to(feats.dtype)
+    return _entry_apply(feats, owners, taps, srcs, w3,
+                        v_out).to(feats.dtype)
 
 
 def _res_heavy_apply(feats, res_hent, res_htile, w2d, cout, v_out, t2,
-                     tent=None, ttap=None, tperm=None, groups=None):
+                     tent=None, ttap=None, tperm=None):
     """Heavy-tile spills -> (v_out, Cout), feats dtype.
 
     With the tap-chunked companion (``tent`` [src, owner] rows, one tap
@@ -244,8 +277,7 @@ def _res_heavy_apply(feats, res_hent, res_htile, w2d, cout, v_out, t2,
     batched (chunk, C) @ (C, Cout) product per chunk; otherwise the
     owner-chunked ``res_hent`` rows [owner, tap, src] are applied entry by
     entry.  ``res_htile`` / ``tperm`` only lay out the reference's TPU
-    scatter and are not needed here.  ``groups`` are the owner groups of
-    the list that is applied (``tent`` when given, else ``res_hent``).
+    scatter and are not needed here.
     """
     cin = feats.shape[-1]
     w3 = w2d.reshape(-1, cin, cout)
@@ -255,42 +287,36 @@ def _res_heavy_apply(feats, res_hent, res_htile, w2d, cout, v_out, t2,
         wsel = w3.to(feats.dtype).float()[ttap.long()]       # (NC, C, Cout)
         contrib = torch.bmm(f.reshape(nc, _RES_HCHUNK, cin), wsel)
         out = _segment_sum(contrib.reshape(-1, cout),
-                           _groups(tent[:, 1], v_out, groups), v_out)
+                           owner_groups(tent[:, 1], v_out), v_out)
     else:
         out = _entry_apply(feats, res_hent[:, 0], res_hent[:, 1],
-                           res_hent[:, 2], w3, v_out, groups)
+                           res_hent[:, 2], w3, v_out)
     return out.to(feats.dtype)
 
 
 def _res_all_apply(feats, rtile, res_ovf, ovf_v, ovf_count, w2d, cout,
-                   out_len=None, order=None):
+                   out_len=None):
     """Every spill tier of one windowed plan -> (out_len, Cout), feats dtype.
 
     ``rtile`` = (res_tile, res_hent, res_htile, res_tent, res_ttap,
-    res_tperm), any of them None; ``order`` the plan's ``spill_order``
-    (without it each tier's owner groups are built on the host here).
-    Each tier is a segmented sum and the tiers are added in a fixed
+    res_tperm), any of them None.  Each tier is a segmented sum, its
+    owner groups built on the host, and the tiers are added in a fixed
     order, so the result is reproducible bit for bit.
     """
     v = out_len if out_len is not None else feats.shape[0]
-    so = order or SpillOrder()
     out = torch.zeros((v, cout), dtype=feats.dtype, device=feats.device)
     if res_ovf.shape[0]:
         out = _res_ovf_apply(feats, res_ovf, ovf_v, ovf_count, w2d, cout,
-                             out_len=v,
-                             groups=(so.ovf_owner, so.ovf_index)
-                             ).to(feats.dtype)
+                             out_len=v).to(feats.dtype)
     res_tile, res_hent, res_htile, tent, ttap, tperm = rtile
     if tent is not None and not tent.shape[0]:
         tent = ttap = tperm = None
     if res_tile is not None and res_tile.shape[0] and res_tile.shape[1]:
-        out = out + _res_tile_apply(feats, res_tile, w2d, cout, v,
-                                    (so.tile_owner, so.tile_index))
+        out = out + _res_tile_apply(feats, res_tile, w2d, cout, v)
     if (res_hent is not None and res_htile is not None
             and res_hent.shape[0] and v % _RES_TILE == 0):
         out = out + _res_heavy_apply(feats, res_hent, res_htile, w2d, cout,
-                                     v, v // _RES_TILE, tent, ttap, tperm,
-                                     (so.heavy_owner, so.heavy_index))
+                                     v, v // _RES_TILE, tent, ttap, tperm)
     return out
 
 
@@ -490,8 +516,8 @@ def _wg_dw_any(src, rb_local, starts, dout, window, sub=0, subwin=0,
 # windowed dW covers the forward entry set.  Everything else (a flat
 # plan, a cross-level conv over the width gate) takes K3 (sub) or K5
 # (flat) for dW with the spill dW in the forward orientation, and K1 (or
-# K4) on the cotangent for dfeats.  The spill tiers' dfeats are
-# ``_res_all_apply`` on the cotangent on every route.  The reference's
+# K4) on the cotangent for dfeats.  The spill tiers' dfeats are K8 on the
+# cotangent on every route, their dW K9.  The reference's
 # TPU-only gates are dropped: ``_use_pallas_kernel`` / ``_use_pallas_wg``
 # (backend and ``_PALLAS_MIN_V``, :657-681, :1288-1300),
 # ``_sub_vmem_fits`` (:711, :986), ``_gather_vmem_fits`` (:752), the lane
@@ -515,7 +541,6 @@ def _subm_w27_backward(feats, weight, dout, win, need_dfeats):
         v = feats.shape[0]
         dout_c = dout.to(feats.dtype).contiguous()
         wt = weight.flip(0).transpose(1, 2)             # wt[a] = W[26-a]^T
-        rtile = _pack_rtile(win)
         if k == 27 and win.sub:
             tile_sz = v // win.starts.shape[0]
             starts, sub_off, rb_local = _w27_active_slice(
@@ -531,25 +556,21 @@ def _subm_w27_backward(feats, weight, dout, win, need_dfeats):
                 dx, dw3 = windowed_bwd_sub(
                     feats, dout_c, starts.reshape(-1), sub_off.reshape(-1),
                     rb_local.t(), wt, **geo)
-            dw = dw3.reshape(k * cin, cout) + _res_all_dw(
-                feats, rtile, win.res_ovf, dout_c, k,
-                flip=_gather_route(win.sub, cin, cout))
+            dw = _spill_dw(feats, dout_c, win, dw3,
+                           flip=_gather_route(win.sub, cin, cout))
             dfeats = _pad_active(dx, v) if need_dfeats else None
         else:
             dw = _w27_dw_any(feats, win.rb_local, win.starts, dout_c,
                              win.window, win.sub, win.subwin, win.sub_off,
                              win.v_active)
-            dw = dw + _res_all_dw(feats, rtile, win.res_ovf, dout_c, k)
+            dw = _spill_dw(feats, dout_c, win, dw.view(k, cin, cout))
             dfeats = (_w27_matmul_any(dout_c, win.rb_local, win.starts, wt,
                                       win.window, win.sub, win.subwin,
                                       win.sub_off, win.v_active)
                       if need_dfeats else None)
         if need_dfeats:
-            dfeats = dfeats.to(feats.dtype) + _res_all_apply(
-                dout_c, rtile, win.res_ovf, win.ovf_v, win.ovf_count,
-                wt.reshape(k * cout, cin), cin,
-                order=win.spill_order).to(feats.dtype)
-        return dfeats, dw.reshape(k, cin, cout).to(weight.dtype)
+            dfeats = _spill_add(dout_c, win, wt, dfeats.to(feats.dtype))
+        return dfeats, dw.to(weight.dtype)
 
 
 def _wg_backward(feats, weight, dout, wg_fwd, wg_bwd, need_dfeats):
@@ -570,25 +591,19 @@ def _wg_backward(feats, weight, dout, wg_fwd, wg_bwd, need_dfeats):
                 wg_bwd.sub_off.reshape(-1), b_rb.t(), wt, window=wg_bwd.window,
                 tile=b_rb.shape[0] // b_starts.shape[0], sub=wg_bwd.sub,
                 subwin=wg_bwd.subwin, flip_taps=False, need_dfeats=need_dfeats)
-            dw = dw3.reshape(k * cin, cout) + _res_all_dw(
-                feats, _pack_rtile(wg_bwd), wg_bwd.res_ovf, dout_c, k,
-                flip=True, tap_flip=False)
+            dw = _spill_dw(feats, dout_c, wg_bwd, dw3, flip=True,
+                           tap_flip=False)
         else:
             dw = _wg_dw_any(feats, wg_fwd.rb_local, wg_fwd.starts, dout_c,
                             wg_fwd.window, wg_fwd.sub, wg_fwd.subwin,
                             wg_fwd.sub_off)
-            dw = dw + _res_all_dw(feats, _pack_rtile(wg_fwd), wg_fwd.res_ovf,
-                                  dout_c, k)
+            dw = _spill_dw(feats, dout_c, wg_fwd, dw.view(k, cin, cout))
             dfeats = (_wg_matmul_any(dout_c, b_rb, b_starts, wt, wg_bwd.window,
                                      wg_bwd.sub, wg_bwd.subwin, wg_bwd.sub_off)
                       if need_dfeats else None)
         if need_dfeats:
-            dfeats = dfeats.to(feats.dtype) + _res_all_apply(
-                dout_c, _pack_rtile(wg_bwd), wg_bwd.res_ovf, wg_bwd.ovf_v,
-                wg_bwd.ovf_count, wt.reshape(k * cout, cin), cin,
-                out_len=b_rb.shape[0], order=wg_bwd.spill_order
-                ).to(feats.dtype)
-        return dfeats, dw.reshape(k, cin, cout).to(weight.dtype)
+            dfeats = _spill_add(dout_c, wg_bwd, wt, dfeats.to(feats.dtype))
+        return dfeats, dw.to(weight.dtype)
 
 
 class _SubmConvW27(torch.autograd.Function):
@@ -597,14 +612,10 @@ class _SubmConvW27(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, feats, weight, win):
-        k, cin, cout = weight.shape
         out = _w27_matmul_any(feats, win.rb_local, win.starts, weight,
                               win.window, win.sub, win.subwin, win.sub_off,
                               win.v_active)
-        out = out.to(feats.dtype) + _res_all_apply(
-            feats, _pack_rtile(win), win.res_ovf, win.ovf_v, win.ovf_count,
-            weight.reshape(k * cin, cout), cout,
-            order=win.spill_order).to(feats.dtype)
+        out = _spill_add(feats, win, weight, out.to(feats.dtype))
         ctx.save_for_backward(feats, weight)
         ctx.win = win
         return out
@@ -623,15 +634,10 @@ class _WGConv(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, feats, weight, wg_fwd, wg_bwd):
-        k, cin, cout = weight.shape
         out = _wg_matmul_any(feats, wg_fwd.rb_local, wg_fwd.starts, weight,
                              wg_fwd.window, wg_fwd.sub, wg_fwd.subwin,
                              wg_fwd.sub_off)
-        out = out.to(feats.dtype) + _res_all_apply(
-            feats, _pack_rtile(wg_fwd), wg_fwd.res_ovf, wg_fwd.ovf_v,
-            wg_fwd.ovf_count, weight.reshape(k * cin, cout), cout,
-            out_len=wg_fwd.rb_local.shape[0],
-            order=wg_fwd.spill_order).to(feats.dtype)
+        out = _spill_add(feats, wg_fwd, weight, out.to(feats.dtype))
         ctx.save_for_backward(feats, weight)
         ctx.plans = (wg_fwd, wg_bwd)
         return out
@@ -741,16 +747,13 @@ def wg_conv_apply(feats: torch.Tensor, weight: torch.Tensor, wg_fwd,
 def _identity_apply(feats, plan):
     """``plan``'s rulebook with tap-tiled identity weights: each output row
     is the sum of its live sources' rows (windows through K1 / K4, spill
-    tiers as segmented sums) -> (V_out, C) in feats' dtype."""
+    tiers through K8's identity form) -> (V_out, C) in feats' dtype."""
     c = feats.shape[-1]
     k = plan.rb_local.shape[1]
     eye = torch.eye(c, dtype=feats.dtype, device=feats.device).expand(k, c, c)
     out = _wg_matmul_any(feats, plan.rb_local, plan.starts, eye, plan.window,
                          plan.sub, plan.subwin, plan.sub_off)
-    return out.to(feats.dtype) + _res_all_apply(
-        feats, _pack_rtile(plan), plan.res_ovf, plan.ovf_v, plan.ovf_count,
-        eye.reshape(k * c, c), c, out_len=plan.rb_local.shape[0],
-        order=plan.spill_order).to(feats.dtype)
+    return _spill_add(feats, plan, None, out.to(feats.dtype))
 
 
 class _WGUnpool(torch.autograd.Function):

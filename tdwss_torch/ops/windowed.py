@@ -1,4 +1,5 @@
-"""Windowed gather-GEMM kernels K1-K6 (CUDA, ``sm_90a``).
+"""Windowed gather-GEMM kernels K1-K6 and the spill kernels K8-K9 (CUDA,
+``sm_90a``).
 
 Twins of the reference's Pallas kernels in ``tdwss/ops/pallas_subm.py``,
 with their argument contracts:
@@ -24,6 +25,13 @@ nothing.  Every product accumulates in f32.  The TPU lane padding
 (``pad_w9``, the ``C3p`` axis) and lane packing are dropped: weights are
 ``(K, C, Cout)`` and dW comes back as ``(K, C, Cout)``.
 
+Beside them, port-only (the reference evaluates the spill tiers in plain
+jnp), K8 ``spill_apply`` and K9 ``spill_dw`` add a windowed plan's spill
+entries (:class:`tdwss_torch.ops.plan.SpillOrder`) onto the windowed
+result, ``out[o] += sum_e x[src_e] @ w[tap_e]`` over each owner's
+entries, and onto the windowed dW, ``dW[slot(tap)] += sum_e left[l_e]^T
+(x) right[r_e]``, each in one fixed order.
+
 Every kernel K1-K6 has two bodies, chosen by the dtype (:func:`fwd_tile`,
 :func:`bwd_tile`): bf16 runs on the tensor cores (K2's and K6's dfeats
 on K1's body; every dW, K3/K5's included, on the tensor-core dW tile;
@@ -31,12 +39,12 @@ both in ``csrc/windowed_mma.cuh``), f32 on the CUDA cores;
 ``body_launches`` counts their launches per body.
 A CUDA tensor launches the kernels in ``tdwss_torch/csrc/`` (K1/K4 in
 ``windowed_fwd.cu``, K2/K3/K5 in ``windowed_bwd.cu``, K6 in
-``windowed_bwd_sub.cu``; built with ``nvcc``
+``windowed_bwd_sub.cu``, K8/K9 in ``spill.cu``; built with ``nvcc``
 at first use into ``build/tdwss_torch/`` and bound with ctypes); a CPU
 tensor takes the plain PyTorch version beside each.  There is no
 fallback from a kernel to its plain version on the card.  ``launches``
 counts kernel launches per kernel name; while a torch profiler records,
-each of the six entries is the span ``tdwss.kernel.<entry>``
+each of the eight entries is the span ``tdwss.kernel.<entry>``
 (:mod:`tdwss_torch.utils.profiling`).  ``build`` also compiles the
 brick engine's block gather K7 (``block_gather.cu``, part ``"gather"``;
 its wrapper and count are in ``tdwss_torch/ops/experimental/
@@ -63,7 +71,8 @@ _CSRC = os.path.join(_PKG_DIR, "csrc")
 SOURCES = {"fwd": os.path.join(_CSRC, "windowed_fwd.cu"),
            "bwd": os.path.join(_CSRC, "windowed_bwd.cu"),
            "bwd_sub": os.path.join(_CSRC, "windowed_bwd_sub.cu"),
-           "gather": os.path.join(_CSRC, "block_gather.cu")}
+           "gather": os.path.join(_CSRC, "block_gather.cu"),
+           "spill": os.path.join(_CSRC, "spill.cu")}
 HEADERS = (os.path.join(_CSRC, "windowed_common.cuh"),
            os.path.join(_CSRC, "windowed_mma.cuh"))
 BUILD_DIR = os.path.join(_REPO_ROOT, "build", "tdwss_torch")
@@ -76,12 +85,16 @@ K3 = "windowed_dw_sub"
 K4 = "windowed_matmul"
 K5 = "windowed_dw"
 K6 = "windowed_bwd_sub"
+K8 = "spill_apply"
+K9 = "spill_dw"
 # Most taps a rulebook may have (KMAX in csrc/windowed_common.cuh; the
 # libraries report theirs, and the forward launch checks against it).
 KMAX = 32
-launches: Dict[str, int] = {K1: 0, K2: 0, K3: 0, K4: 0, K5: 0, K6: 0}
-# The two bodies of every kernel: bf16 runs on the tensor cores (cp.async
-# gathers, mma.sync; csrc/windowed_mma.cuh), f32 on the CUDA cores.
+launches: Dict[str, int] = {K1: 0, K2: 0, K3: 0, K4: 0, K5: 0, K6: 0,
+                            K8: 0, K9: 0}
+# The two bodies of K1-K6: bf16 runs on the tensor cores (cp.async
+# gathers, mma.sync; csrc/windowed_mma.cuh), f32 on the CUDA cores.  K8
+# and K9 run on the CUDA cores in both dtypes.
 # Launches are also counted per body, "<kernel>:<body>".
 BODY_MMA, BODY_FMA = "mma", "fma"
 body_launches: Dict[str, int] = {f"{k}:{b}": 0 for k in launches
@@ -153,11 +166,25 @@ _ARGTYPES = {
         _P, _I64, _I64,          # src, n, row_bytes
         _P, _I64, _P, _I, _P,    # idx, m, out, vec_bytes, stream
     ],
+    "tdwss_spill_apply": [
+        _P, _I64, _I,            # x, n_src, cin
+        _P, _P, _P, _I64,        # owner, start, entry, n_owner
+        _P, _I, _I,              # w, k, cout
+        _P, _I64, _I, _P,        # out, v_out, dtype, stream
+    ],
+    "tdwss_spill_dw": [
+        _P, _I64, _I,            # left, n_left, cl
+        _P, _I64, _I,            # right, n_right, cr
+        _P, _I, _P, _I,          # rows, lcol, chunk, nchunk
+        _P, _I, _I,              # tap_chunk, k, flip_taps
+        _P, _P, _I, _P,          # part, dw, dtype, stream
+    ],
 }
 _FUNCS = {"fwd": ("tdwss_windowed_fwd", "tdwss_windowed_fwd_mma"),
           "bwd": ("tdwss_windowed_dw", "tdwss_windowed_bwd_gather"),
           "bwd_sub": ("tdwss_windowed_bwd_sub",),
-          "gather": ("tdwss_block_gather",)}
+          "gather": ("tdwss_block_gather",),
+          "spill": ("tdwss_spill_apply", "tdwss_spill_dw")}
 
 
 def reset_launches() -> None:
@@ -217,6 +244,8 @@ def _load(part: str) -> ctypes.CDLL:
                 fn.argtypes = _ARGTYPES[name]
             if part == "fwd":
                 lib.tdwss_windowed_fwd_kmax.restype = ctypes.c_int
+            if part == "spill":
+                lib.tdwss_spill_apply_max_cin.restype = ctypes.c_int
             _libs[part] = lib
         return _libs[part]
 
@@ -821,6 +850,222 @@ def windowed_bwd_sub(feats, dout, starts, soff, rb_local_t, wt, window,
 
 
 # ---------------------------------------------------------------------------
+# K8 / K9: the spill tiers (port-only)
+# ---------------------------------------------------------------------------
+
+def _spill_apply_args(feats, owner, start, entry, w, out):
+    """Validate K8's arguments; returns its tap count (None: identity)."""
+    if feats.dim() != 2 or out.dim() != 2:
+        raise ValueError("feats (V_src, C) and out (V_out, Cout)")
+    if owner.dim() != 1 or tuple(start.shape) != (owner.shape[0] + 1,):
+        raise ValueError("owner (U,) and start (U + 1,)")
+    if entry.dim() != 2 or entry.shape[1] != 2:
+        raise ValueError(f"entry {tuple(entry.shape)} must be (E, 2)")
+    for name, t in (("owner", owner), ("start", start), ("entry", entry)):
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32, got {t.dtype}")
+    if out.dtype != feats.dtype:
+        raise TypeError(f"out {out.dtype} must be in feats' dtype "
+                        f"{feats.dtype}")
+    if w is None:
+        if out.shape[1] != feats.shape[1]:
+            raise ValueError("the identity needs Cout == C")
+        return None
+    _check_w(w, w.shape[0], feats.shape[1])
+    if w.shape[2] != out.shape[1]:
+        raise ValueError(f"w {tuple(w.shape)} and out {tuple(out.shape)} "
+                         "disagree on Cout")
+    return w.shape[0]
+
+
+def _plain_spill_apply(feats, owner, start, entry, w, out):
+    k = None if w is None else w.shape[0]
+    src, tap = entry[:, 0].long(), entry[:, 1].long()
+    ok = (src >= 0) & (src < feats.shape[0])
+    if k is not None:
+        ok &= (tap >= 0) & (tap < k)
+    x = feats[torch.where(ok, src, torch.zeros_like(src))].float() * ok[
+        :, None]
+    if w is None:
+        contrib = x
+    else:
+        wf = w.to(feats.dtype).float()
+        contrib = torch.zeros((x.shape[0], wf.shape[-1]),
+                              dtype=torch.float32, device=feats.device)
+        for a in range(k):
+            contrib += (x * (tap == a)[:, None]) @ wf[a]
+    if not owner.shape[0]:
+        return out
+    # each owner's contributions summed in entry order: column by column
+    # over its rows, a short owner's padding reading a zero row
+    first, count = start[:-1].long(), (start[1:] - start[:-1]).long()
+    col = torch.arange(int(count.max()), device=feats.device)
+    idx = torch.where(col < count[:, None], first[:, None] + col,
+                      torch.full_like(first[:, None], contrib.shape[0]))
+    rows = torch.cat([contrib, contrib.new_zeros((1, contrib.shape[1]))])
+    total = rows[idx[:, 0]]
+    for j in range(1, idx.shape[1]):
+        total = total + rows[idx[:, j]]
+    o = owner.long()
+    out[o] = out[o] + total.to(out.dtype)
+    return out
+
+
+def spill_apply_plain(feats, owner, start, entry, w, out):
+    """Plain version of K8 (same arguments as :func:`spill_apply`)."""
+    _spill_apply_args(feats, owner, start, entry, w, out)
+    return _plain_spill_apply(feats, owner, start, entry, w, out)
+
+
+def spill_apply(feats, owner, start, entry, w, out):
+    """K8: a plan's spill entries added onto ``out`` in place -> ``out``.
+
+    feats (V_src, C) the source rows; owner (U,), start (U + 1,) and entry
+    (E, 2) [src, tap] int32, the entries of each owner (``SpillOrder``'s
+    by-owner layout); w (K, C, Cout) cast to feats' dtype, or None for the
+    identity (C == Cout); out (V_out, Cout) in feats' dtype.  Each owner's
+    row gets ``T(out + T(sum))``, its entries' products summed in f32 in
+    entry order (T the dtype); an entry whose source or tap is out of
+    range adds nothing.
+    """
+    with profiling.span("tdwss.kernel.spill_apply"):
+        k = _spill_apply_args(feats, owner, start, entry, w, out)
+        if _on_cpu(feats):
+            return _plain_spill_apply(feats, owner, start, entry, w, out)
+        _device_check([feats, owner, start, entry, w, out], feats.dtype)
+        if not (feats.is_contiguous() and out.is_contiguous()):
+            raise ValueError("feats and out must be contiguous")
+        lib = _load("spill")
+        if feats.shape[1] > lib.tdwss_spill_apply_max_cin():
+            raise ValueError(f"C {feats.shape[1]} exceeds K8's limit")
+        if w is not None:
+            w = w.to(feats.dtype).contiguous()
+        err = lib.tdwss_spill_apply(
+            feats.data_ptr(), feats.shape[0], feats.shape[1],
+            owner.data_ptr(), start.data_ptr(), entry.data_ptr(),
+            owner.shape[0], w.data_ptr() if w is not None else None,
+            k if k is not None else KMAX, out.shape[1], out.data_ptr(),
+            out.shape[0], _DTYPES[feats.dtype],
+            torch.cuda.current_stream(feats.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"{K8} launch failed: cudaError {err}")
+        launches[K8] += 1
+        body_launches[f"{K8}:{BODY_FMA}"] += 1
+        return out
+
+
+def _spill_dw_args(feats, dout, tap_entry, chunk, tap_chunk, dw):
+    if feats.dim() != 2 or dout.dim() != 2:
+        raise ValueError("feats (V, C) and dout (V', Cout)")
+    if tap_entry.dim() != 2 or tap_entry.shape[1] != 2:
+        raise ValueError(f"tap_entry {tuple(tap_entry.shape)} must be (E, 2)")
+    if chunk.dim() != 2 or chunk.shape[1] != 2 or not chunk.shape[0]:
+        raise ValueError(f"chunk {tuple(chunk.shape)} must be (NCH + 1, 2)")
+    k = tap_chunk.shape[0] - 1
+    if tuple(dw.shape) != (k, feats.shape[1], dout.shape[1]) or (
+            dw.dtype != torch.float32):
+        raise ValueError(f"dw {tuple(dw.shape)} {dw.dtype} must be f32 "
+                         f"(K={k}, C={feats.shape[1]}, Cout={dout.shape[1]})")
+    for name, t in (("tap_entry", tap_entry), ("chunk", chunk),
+                    ("tap_chunk", tap_chunk)):
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32, got {t.dtype}")
+    return k
+
+
+def _plain_spill_dw(feats, dout, tap_entry, chunk, tap_chunk, dw, flip,
+                    flip_taps):
+    lcol = 1 if flip else 0
+    lrow, rrow = tap_entry[:, lcol].long(), tap_entry[:, 1 - lcol].long()
+    ok = ((lrow >= 0) & (lrow < feats.shape[0]) & (rrow >= 0)
+          & (rrow < dout.shape[0]))[:, None]
+    zero = torch.zeros_like(lrow)
+    left = feats[torch.where(ok[:, 0], lrow, zero)].float() * ok
+    right = dout[torch.where(ok[:, 0], rrow, zero)].to(
+        feats.dtype).float() * ok
+    heads = chunk[:, 0].long()
+    if heads.shape[0] < 2:
+        return dw
+    # each chunk's partial: its rows, padded with zero rows to the longest
+    # chunk, in one batched product
+    longest = int((heads[1:] - heads[:-1]).max())
+    pos = heads[:-1, None] + torch.arange(longest, device=dw.device)
+    pos = torch.where(pos < heads[1:, None], pos,
+                      torch.full_like(pos, left.shape[0]))
+    lp = torch.cat([left, left.new_zeros((1, left.shape[1]))])[pos]
+    rp = torch.cat([right, right.new_zeros((1, right.shape[1]))])[pos]
+    part = torch.bmm(lp.transpose(1, 2), rp)
+    # each tap's chunks summed tier by tier, the tiers' sums in tier order
+    tiers = chunk[:, 1].tolist()
+    first = tap_chunk.tolist()
+    k = len(first) - 1
+    for slot in range(k):
+        a = k - 1 - slot if flip_taps else slot
+        j0, j1 = first[a], first[a + 1]
+        if j0 == j1:
+            continue
+        total, tier_sum = None, part[j0]
+        for j in range(j0 + 1, j1):
+            if tiers[j] != tiers[j - 1]:
+                total = tier_sum if total is None else total + tier_sum
+                tier_sum = part[j]
+            else:
+                tier_sum = tier_sum + part[j]
+        dw[slot] += tier_sum if total is None else total + tier_sum
+    return dw
+
+
+def spill_dw_plain(feats, dout, tap_entry, chunk, tap_chunk, dw, flip=False,
+                   flip_taps=False):
+    """Plain version of K9 (same arguments as :func:`spill_dw`)."""
+    _spill_dw_args(feats, dout, tap_entry, chunk, tap_chunk, dw)
+    return _plain_spill_dw(feats, dout, tap_entry, chunk, tap_chunk, dw,
+                           flip, flip_taps)
+
+
+def spill_dw(feats, dout, tap_entry, chunk, tap_chunk, dw, flip=False,
+             flip_taps=False):
+    """K9: a plan's spill entries' weight gradient added onto ``dw`` in
+    place -> ``dw``.
+
+    feats (V, C) and dout (V', Cout) (cast to feats' dtype); tap_entry
+    (E, 2) [src, owner], chunk (NCH + 1, 2) [first row, tier] and
+    tap_chunk (K + 1,) int32 (``SpillOrder``'s by-tap layout); dw (K, C,
+    Cout) f32.  An entry adds ``feats[src]^T (x) dout[owner]``, or with
+    ``flip`` ``feats[owner]^T (x) dout[src]``, into slot ``tap``, or
+    ``K-1-tap`` with ``flip_taps``; a chunk's entries are summed in order,
+    a tap's chunks tier by tier in chunk order and the tiers' sums in
+    tier order; an entry with a row out of range adds nothing.
+    """
+    with profiling.span("tdwss.kernel.spill_dw"):
+        k = _spill_dw_args(feats, dout, tap_entry, chunk, tap_chunk, dw)
+        if _on_cpu(feats):
+            return _plain_spill_dw(feats, dout, tap_entry, chunk, tap_chunk,
+                                   dw, flip, flip_taps)
+        _device_check([feats, dout, tap_entry, chunk, tap_chunk, dw],
+                      feats.dtype)
+        if not (feats.is_contiguous() and dw.is_contiguous()):
+            raise ValueError("feats and dw must be contiguous")
+        dout = dout.to(feats.dtype).contiguous()
+        nchunk = chunk.shape[0] - 1
+        c, cout = feats.shape[1], dout.shape[1]
+        part = torch.empty((nchunk, c, cout), dtype=torch.float32,
+                           device=feats.device)
+        err = _load("spill").tdwss_spill_dw(
+            feats.data_ptr(), feats.shape[0], c, dout.data_ptr(),
+            dout.shape[0], cout, tap_entry.data_ptr(), int(flip),
+            chunk.data_ptr(), nchunk, tap_chunk.data_ptr(), k,
+            int(flip_taps), part.data_ptr(), dw.data_ptr(),
+            _DTYPES[feats.dtype],
+            torch.cuda.current_stream(feats.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"{K9} launch failed: cudaError {err}")
+        launches[K9] += 1
+        body_launches[f"{K9}:{BODY_FMA}"] += 1
+        return dw
+
+
+# ---------------------------------------------------------------------------
 # Work of each function, for its bound
 # ---------------------------------------------------------------------------
 
@@ -901,3 +1146,39 @@ def work_bwd_sub(feats, dout, starts, soff, rb_local_t, wt, tile, sub,
     if need_dfeats:
         nbytes += wt.numel() * item + v_out * cin * item
     return nbytes, (2 if need_dfeats else 1) * 2 * entries * cin * cout
+
+
+def work_spill_apply(feats, owner, entry, w, out):
+    """K8: each distinct live source row, each owner's output row read and
+    written, the entry lists and w moved once; 2 * C * Cout operations per
+    live entry (none for the identity)."""
+    src, tap = entry[:, 0].long(), entry[:, 1].long()
+    ok = (src >= 0) & (src < feats.shape[0])
+    if w is not None:
+        ok &= (tap >= 0) & (tap < w.shape[0])
+    item = feats.element_size()
+    c, cout = feats.shape[1], out.shape[1]
+    nbytes = (int(torch.unique(src[ok]).numel()) * c * item
+              + 2 * owner.shape[0] * cout * item
+              + (2 * owner.shape[0] + 1 + entry.numel()) * 4
+              + (w.numel() * item if w is not None else 0))
+    flops = 2 * int(ok.sum()) * c * cout if w is not None else 0
+    return nbytes, flops
+
+
+def work_spill_dw(feats, dout, tap_entry, chunk, tap_chunk, flip=False):
+    """K9: each distinct live row of both operands, the entry lists and the
+    f32 dW read and written once; 2 * C * Cout operations per live
+    entry."""
+    lcol = 1 if flip else 0
+    lrow, rrow = tap_entry[:, lcol].long(), tap_entry[:, 1 - lcol].long()
+    ok = ((lrow >= 0) & (lrow < feats.shape[0]) & (rrow >= 0)
+          & (rrow < dout.shape[0]))
+    item = feats.element_size()
+    k = tap_chunk.shape[0] - 1
+    c, cout = feats.shape[1], dout.shape[1]
+    nbytes = (int(torch.unique(lrow[ok]).numel()) * c * item
+              + int(torch.unique(rrow[ok]).numel()) * cout * item
+              + (tap_entry.numel() + chunk.numel() + tap_chunk.numel()) * 4
+              + 2 * k * c * cout * 4)
+    return nbytes, 2 * int(ok.sum()) * c * cout

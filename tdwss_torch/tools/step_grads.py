@@ -9,8 +9,8 @@ configuration and its switch to the plain versions).  For each seed
 ``s`` (dataset seed ``7 + s``, collate rng and weights seeded ``s``), one
 step's gradients in the chosen compute dtype are taken through the
 kernels, again through the kernels (the two must be bit-identical: the
-kernels' dW partials and the spill tiers' segmented sums add in a fixed
-order, with no switch of PyTorch's), and through the plain versions; per
+kernels' dW partials and the spill kernels' sums add in a fixed order,
+with no switch of PyTorch's), and through the plain versions; per
 parameter tensor it reports ``||g_kern - g_plain|| / ||g_plain||``, the
 largest and the median.
 

@@ -16,7 +16,10 @@ threads, f32):
 - the sticky plan registry counts its ratchets, and no thread's span,
   count or ratchet is lost;
 - the profiler flags the recorder reads exist and follow the profiler;
-- ``chip_smoke.py``'s profile phase files device time by these spans.
+- ``chip_smoke.py``'s profile phase files device time by these spans;
+- a windowed subm conv's forward and backward count
+  ``tdwss.conv.spill_entries``, the plan's live spill entries once per
+  pass (forward, dfeats, dW), and record the spill kernels' spans.
 """
 
 import os
@@ -43,7 +46,8 @@ LOOP_SPANS = {"tdwss.train.epoch", "tdwss.train.step", "tdwss.train.forward",
               "tdwss.train.card_wait", "tdwss.loader.wait",
               "tdwss.loader.batch", "tdwss.loader.collate",
               "tdwss.loader.plan", "tdwss.loader.copy"}
-OP_SPANS = {"tdwss.bn", "tdwss.conv.segment_sum", "tdwss.conv.backward"}
+OP_SPANS = {"tdwss.bn", "tdwss.conv.backward", "tdwss.kernel.spill_apply",
+            "tdwss.kernel.spill_dw"}
 
 
 def _cfg(**engine):
@@ -282,3 +286,34 @@ def test_chip_smoke_categories_read_the_spans():
         if e.name.startswith("aten::") and e.cpu_parent is not None:
             cats.setdefault(chip_smoke._category(e, ""), 0)
     assert {"batch norm forward", "kernel wrappers' own ops"} <= set(cats)
+
+
+def test_spill_passes_count_their_entries():
+    import numpy as np
+
+    from tdwss_torch.ops.host_plan import (build_subm_rulebook_np,
+                                           build_windowed_subm27,
+                                           voxelize_np)
+    from tdwss_torch.ops.sparse_conv import subm_conv_apply
+
+    rng = np.random.default_rng(3)
+    n = 2048
+    coords = np.concatenate([rng.integers(0, 16, (n, 3)),
+                             rng.integers(0, 2, (n, 1))], 1).astype(np.int32)
+    grid, _, _ = voxelize_np(coords, None, rng.random(n) > 0.05, n)
+    reset_sticky_plans()
+    win = build_windowed_subm27(build_subm_rulebook_np(grid, 3), grid,
+                                tile=512, window=96).to("cpu")
+    reset_sticky_plans()
+    entries = win.spill_order.entries
+    assert entries > 0
+    feats = torch.randn(n, 4, requires_grad=True)
+    weight = torch.randn(27, 4, 3, requires_grad=True)
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        subm_conv_apply(feats, torch.zeros((n, 27), dtype=torch.int32),
+                        weight, win).sum().backward()
+    assert profiling.counters()["tdwss.conv.spill_entries"] == 3 * entries
+    totals = profiling.span_totals()
+    assert totals["tdwss.kernel.spill_apply"]["count"] == 2
+    assert totals["tdwss.kernel.spill_dw"]["count"] == 1
