@@ -25,6 +25,7 @@ from tdwss_torch.data.augment import (color_jitter, scene_label_from_points,
 from tdwss_torch.data.batch import BoxBatch, PointBatch, TextBatch
 from tdwss_torch.data.synthetic import Scene
 from tdwss_torch.data.tokenizer import get_tokenizer, tokenize
+from tdwss_torch.utils import profiling
 
 
 @dataclass
@@ -71,7 +72,8 @@ def _pad_points(arrays: dict, n_actual: int, capacity: int,
 
 def train_collate(scenes: Sequence[Scene], cfg: Config,
                   rng: np.random.Generator,
-                  stats: Optional[CollateStats] = None) -> PointBatch:
+                  stats: Optional[CollateStats] = None,
+                  key: Optional[tuple] = None) -> PointBatch:
     """trainMerge parity over a list of scenes (subclouds, under label
     ``subcloud``, are scenes too): one augmented view per scene, colour
     jitter, scene tags from the kept points' labels, and under label
@@ -80,7 +82,9 @@ def train_collate(scenes: Sequence[Scene], cfg: Config,
 
     Under ``has_text`` each scene's first ``cropped_texts`` descriptions
     become a (cropped_texts, max_seq_len) row of token ids (zeros for a
-    scene without texts); tokenizing draws nothing from ``rng``.  Under
+    scene without texts); tokenizing draws nothing from ``rng``, and is
+    the span ``tdwss.loader.tokenize`` of batch ``key`` (see
+    :func:`collate_text`).  Under
     ``with_boxes`` the batch carries :func:`_collate_boxes` of the
     scenes and the transforms their augmentation returned."""
     pcd = cfg.pointcloud_data
@@ -125,7 +129,7 @@ def train_collate(scenes: Sequence[Scene], cfg: Config,
         scene_mask=np.ones(len(scenes), bool),
         point_label=arrays["point_label"],
         point_ids=np.full(cfg.engine.max_points, -1, np.int32),
-        text=collate_text(scenes, cfg) if cfg.has_text else None,
+        text=collate_text(scenes, cfg, key) if cfg.has_text else None,
         box=(_collate_boxes(scenes, transforms, pcd.max_boxes)
              if pcd.with_boxes else None),
     )
@@ -159,19 +163,33 @@ def _collate_boxes(scenes: Sequence[Scene], transforms: Sequence[dict],
                     rot_inv=rot_inv, offset=offset)
 
 
-def collate_text(scenes: Sequence[Scene], cfg: Config) -> TextBatch:
+def live_tokens(tokens: np.ndarray) -> int:
+    """The positions up to and including each non-empty row's EOT (the
+    largest id of the row, where the text tower reads its feature)."""
+    tokens = tokens.reshape(-1, tokens.shape[-1])
+    return int((tokens.argmax(-1) + 1)[(tokens != 0).any(-1)].sum())
+
+
+def collate_text(scenes: Sequence[Scene], cfg: Config,
+                 key: Optional[tuple] = None) -> TextBatch:
     """Token rows of the scenes' first ``cropped_texts`` descriptions;
-    ``has_text`` = the scene index, ``valid`` = the scene has texts."""
+    ``has_text`` = the scene index, ``valid`` = the scene has texts.
+    While a torch profiler records, tokenizing is the span
+    ``tdwss.loader.tokenize`` of batch ``key``, and the counter
+    ``tdwss.text.live_tokens`` adds :func:`live_tokens` of the rows."""
     td = cfg.text_data
-    tokenizer = get_tokenizer(td.bpe_vocab_path or None)
     tokens = np.zeros((len(scenes), td.cropped_texts, td.max_seq_len),
                       np.int32)
-    for i, scene in enumerate(scenes):
-        texts = scene.texts[: td.cropped_texts]
-        if texts:
-            rows = tokenize(texts, td.max_seq_len, tokenizer=tokenizer,
-                            vocab_size=cfg.text_model.vocab_size)
-            tokens[i, : rows.shape[0]] = rows
+    with profiling.span("tdwss.loader.tokenize", key):
+        tokenizer = get_tokenizer(td.bpe_vocab_path or None)
+        for i, scene in enumerate(scenes):
+            texts = scene.texts[: td.cropped_texts]
+            if texts:
+                rows = tokenize(texts, td.max_seq_len, tokenizer=tokenizer,
+                                vocab_size=cfg.text_model.vocab_size)
+                tokens[i, : rows.shape[0]] = rows
+    if profiling.recording():
+        profiling.count("tdwss.text.live_tokens", live_tokens(tokens))
     return TextBatch(
         tokens=tokens,
         has_text=np.arange(len(scenes), dtype=np.int32),

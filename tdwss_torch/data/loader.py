@@ -168,7 +168,8 @@ def train_batches(scenes: Sequence[Scene], cfg: Config, epoch: int,
     data-parallel step (:func:`shard_starts`; ``cfg`` then holds the
     per-rank batch size), and plans no other.  Each batch's collate and
     plans are the span ``tdwss.loader.batch`` with the children
-    ``tdwss.loader.collate`` and ``tdwss.loader.plan``, keyed
+    ``tdwss.loader.collate`` (with ``tdwss.loader.tokenize`` inside,
+    for text configs) and ``tdwss.loader.plan``, keyed
     ``(epoch, ordinal)`` as the step that trains on it."""
     rng = np.random.default_rng(np.random.SeedSequence([cfg.seed, epoch]))
     order = rng.permutation(len(scenes))
@@ -185,7 +186,7 @@ def train_batches(scenes: Sequence[Scene], cfg: Config, epoch: int,
             brng = np.random.default_rng(
                 np.random.SeedSequence([cfg.seed, epoch, start]))
             with profiling.span("tdwss.loader.collate", key):
-                batch = train_collate(sel, cfg, brng, stats)
+                batch = train_collate(sel, cfg, brng, stats, key)
             if cfg.engine.host_plans:
                 with profiling.span("tdwss.loader.plan", key):
                     batch = attach_host_plans(batch, cfg)

@@ -37,6 +37,7 @@ from tdwss_torch.models.transformer import (build_text_encoder,
 from tdwss_torch.ops.segment import segment_mean_by_batch
 from tdwss_torch.ops.windowed import KMAX
 from tdwss_torch.registry import MODEL_REGISTRY
+from tdwss_torch.utils import profiling
 
 
 def build_encoder(pc_config: PointcloudModelConfig,
@@ -145,7 +146,11 @@ class MultiLabelContrastive(MultiLabel):
     pooled scene features: a config where that differs from the
     encoder's output width is refused here (the reference fails in the
     loss).  Parameters are drawn as :class:`MultiLabel`'s, then the text
-    tower's and ``text_linear``'s (normal(0, 1/width), zero bias)."""
+    tower's and ``text_linear``'s (normal(0, 1/width), zero bias).
+
+    While a torch profiler records, the tower with ``text_linear`` is the
+    span ``tdwss.text.tower`` and the counter ``tdwss.text.rows`` adds
+    the token rows it computes (:mod:`tdwss_torch.utils.profiling`)."""
 
     def __init__(self, pc_config: PointcloudModelConfig,
                  text_config: TextModelConfig,
@@ -178,8 +183,10 @@ class MultiLabelContrastive(MultiLabel):
         tfeats = None
         if text is not None and text.tokens.shape[0] > 0:
             bt, nt, length = text.tokens.shape
-            tfeats = self.text_encoder(text.tokens.reshape(-1, length))
-            tfeats = self.text_linear(tfeats.reshape(bt, nt, -1))
+            with profiling.span("tdwss.text.tower"):
+                profiling.count("tdwss.text.rows", bt * nt)
+                tfeats = self.text_encoder(text.tokens.reshape(-1, length))
+                tfeats = self.text_linear(tfeats.reshape(bt, nt, -1))
         gfeats = self.pc_encoder(
             batch.coords, batch.feats, batch.valid, istrain=True,
             train=True if train is None else train,

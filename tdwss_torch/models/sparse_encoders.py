@@ -50,6 +50,7 @@ from tdwss_torch.ops.segment import segment_mean_weighted
 from tdwss_torch.ops.sparse_conv import unpool, wg_unpool_apply
 from tdwss_torch.ops.voxelize import devoxelize, devoxelize_seg, voxelize
 from tdwss_torch.registry import MODEL_REGISTRY
+from tdwss_torch.utils import profiling
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -137,7 +138,8 @@ class _DownBody(nn.Module):
     """What the FCN and direct up-pool bodies share: ``reps`` blocks at
     the level's plane, then (below the last level) BatchNormReLU, a
     strided conv to the next plane, the body of the level below, and an
-    unpool of its output back to this level."""
+    unpool of its output back to this level.  While a torch profiler
+    records, the unpool and the join are the span ``tdwss.unpool``."""
 
     def __init__(self, n_planes: Sequence[int], reps: int, residual: bool,
                  kernel_volume: int = 8,
@@ -171,11 +173,13 @@ class _DownBody(nn.Module):
         h = self.down_conv(h, lvl.down_rb, lvl.parent, lvl.child_offset,
                            lvl.wg_down, lvl.wg_up)
         h = self.inner(h, plans, level + 1, train)
-        if lvl.wg_up is not None and lvl.wg_down is not None:
-            h = wg_unpool_apply(h, lvl.wg_up, lvl.wg_down)
-        else:
-            h = unpool(h, lvl.parent, fine_valid=valid, down_rb=lvl.down_rb)
-        return self._join(feats, h)
+        with profiling.span("tdwss.unpool"):
+            if lvl.wg_up is not None and lvl.wg_down is not None:
+                h = wg_unpool_apply(h, lvl.wg_up, lvl.wg_down)
+            else:
+                h = unpool(h, lvl.parent, fine_valid=valid,
+                           down_rb=lvl.down_rb)
+            return self._join(feats, h)
 
 
 class FCNBody(_DownBody):

@@ -14,6 +14,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from tdwss_torch.utils import profiling
+
 IGNORE_LABEL = -100
 
 
@@ -76,25 +78,28 @@ def TextContrastive(pc: torch.Tensor, text: torch.Tensor,
     ``finfo.min`` so that they leave the softmax over scenes (the
     reference runs unpadded batches); the cross-entropy against the
     owning scene (clipped into range; a negative owner is dropped),
-    averaged over the kept (b', t).
+    averaged over the kept (b', t).  While a torch profiler records, the
+    loss is the span ``tdwss.text.loss``.
     """
     if text.dim() != 3:
         raise ValueError(f"text must be (B', T, m), got {tuple(text.shape)}")
-    dtype = torch.promote_types(text.dtype, pc.dtype)
-    similarity = torch.einsum("btm,cm->btc", text.to(dtype), pc.to(dtype))
-    if scene_mask is not None:
-        similarity = similarity.masked_fill(~scene_mask.bool()[None, None],
-                                            torch.finfo(dtype).min)
-    logp = F.log_softmax(similarity, dim=-1)
-    num_text = text.shape[1]
-    labels = has_text[:, None].expand(-1, num_text)
-    safe = labels.clamp(0, pc.shape[0] - 1).long()
-    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
-    if text_mask is None:
-        keep = torch.ones_like(nll)
-    else:
-        keep = text_mask.to(nll.dtype)
-        if keep.dim() == 1:
-            keep = keep[:, None].expand(-1, num_text)
-    keep = keep * (labels >= 0).to(nll.dtype)
-    return (nll * keep).sum() / torch.clamp(keep.sum(), min=1.0)
+    with profiling.span("tdwss.text.loss"):
+        dtype = torch.promote_types(text.dtype, pc.dtype)
+        similarity = torch.einsum("btm,cm->btc", text.to(dtype),
+                                  pc.to(dtype))
+        if scene_mask is not None:
+            similarity = similarity.masked_fill(
+                ~scene_mask.bool()[None, None], torch.finfo(dtype).min)
+        logp = F.log_softmax(similarity, dim=-1)
+        num_text = text.shape[1]
+        labels = has_text[:, None].expand(-1, num_text)
+        safe = labels.clamp(0, pc.shape[0] - 1).long()
+        nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+        if text_mask is None:
+            keep = torch.ones_like(nll)
+        else:
+            keep = text_mask.to(nll.dtype)
+            if keep.dim() == 1:
+                keep = keep[:, None].expand(-1, num_text)
+        keep = keep * (labels >= 0).to(nll.dtype)
+        return (nll * keep).sum() / torch.clamp(keep.sum(), min=1.0)

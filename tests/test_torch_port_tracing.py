@@ -317,3 +317,100 @@ def test_spill_passes_count_their_entries():
     totals = profiling.span_totals()
     assert totals["tdwss.kernel.spill_apply"]["count"] == 2
     assert totals["tdwss.kernel.spill_dw"]["count"] == 1
+
+
+# --- the text model's spans and counters ----------------------------------
+
+TEXT_SPANS = {"tdwss.text.tower", "tdwss.text.loss", "tdwss.loader.tokenize",
+              "tdwss.unpool"}
+
+
+def _text_cfg():
+    """``MultiLabelContrastive`` over SparseConvFCNet, m=4, depth 7 (the
+    text tower maps to its width, 112), a 2-layer tower of width 64 over
+    16 tokens, 4 descriptions a scene."""
+    cfg = _cfg()
+    cfg.model_name = "MultiLabelContrastive"
+    cfg.has_text = True
+    cfg.pointcloud_model.depth = 7
+    cfg.text_model.width, cfg.text_model.layers = 64, 2
+    cfg.text_model.context_length = cfg.text_data.max_seq_len = 16
+    cfg.text_data.cropped_texts = 4
+    cfg.loss.TextContrastive = True
+    return cfg
+
+
+@pytest.fixture(scope="module")
+def text_trainer(tmp_path_factory):
+    with pytest.MonkeyPatch.context() as mp:
+        mp.chdir(tmp_path_factory.mktemp("tracing_text"))
+        mp.setitem(sys.modules, "torch.utils.tensorboard", None)
+        reset_sticky_plans()
+        scenes = make_dataset(4, num_points=4000, seed=37, with_text=True)
+        yield Trainer(_text_cfg(), scenes, [], use_checkpoints=False,
+                      verbose=False, device="cpu")
+
+
+def test_text_spans_off_read_no_clock_and_enter_no_record_function(
+        text_trainer, monkeypatch):
+    profiling.reset()
+    monkeypatch.setattr(torch.profiler, "record_function", _boom)
+    monkeypatch.setattr(time, "time_ns", _boom)
+    loss = text_trainer.run_epoch(1)
+    monkeypatch.undo()
+    assert loss > 0
+    assert profiling.spans() == [] and profiling.counters() == {}
+
+
+@pytest.fixture(scope="module")
+def text_traced(text_trainer):
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        text_trainer.run_epoch(2)
+    names = {e.name() for e in prof.profiler.kineto_results.events()}
+    out = dict(spans=profiling.spans(), counters=profiling.counters(),
+               events=names, thread=threading.get_ident())
+    profiling.reset()
+    return out
+
+
+def test_text_spans_and_counters_recorded(text_traced, text_trainer):
+    spans = text_traced["spans"]
+    assert TEXT_SPANS <= {s.name for s in spans}
+    by_id = {s.id: s for s in spans}
+    steps = sorted(s.key for s in spans if s.name == "tdwss.train.step")
+    assert steps == [(2, 0), (2, 1)]
+    main = text_traced["thread"]
+    for name in ("tdwss.text.tower", "tdwss.text.loss"):
+        mine = [s for s in spans if s.name == name]
+        assert len(mine) == len(steps) and {s.thread for s in mine} == {main}
+        assert {by_id[s.parent].name for s in mine} == {"tdwss.train.forward"}
+        # on the loop's thread the span is a record_function too
+        assert name in text_traced["events"]
+    tok = [s for s in spans if s.name == "tdwss.loader.tokenize"]
+    assert sorted(s.key for s in tok) == steps
+    for s in tok:
+        parent = by_id[s.parent]
+        assert parent.name == "tdwss.loader.collate" and parent.key == s.key
+        assert s.thread != main
+    # an unpool and its join below each of the FCN's 7 levels but the last
+    assert sum(s.name == "tdwss.unpool" for s in spans) == 6 * len(steps)
+    cfg = text_trainer.cfg
+    rows = len(steps) * cfg.pointcloud_data.batch_size \
+        * cfg.text_data.cropped_texts
+    assert text_traced["counters"]["tdwss.text.rows"] == rows
+
+
+def test_live_tokens_count_the_rows_up_to_their_eot(text_traced,
+                                                    text_trainer):
+    """The counter against a count of the epoch's token rows, each
+    non-empty row up to and including its last non-zero id (its EOT)."""
+    want = 0
+    for batch in train_batches(text_trainer.train_scenes, text_trainer.cfg,
+                               2, prefetch=False):
+        for row in batch.text.tokens.reshape(
+                -1, batch.text.tokens.shape[-1]).tolist():
+            nonzero = [i for i, t in enumerate(row) if t != 0]
+            want += nonzero[-1] + 1 if nonzero else 0
+    assert want > 0
+    assert text_traced["counters"]["tdwss.text.live_tokens"] == want
