@@ -142,23 +142,6 @@ def _host(a) -> np.ndarray:
     return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
 
 
-def owner_groups(owners, v_out: int) -> Tuple[np.ndarray, np.ndarray]:
-    """(owner (U,), index (U, D)) of an entry list's owner column: the
-    distinct owners in ``[0, v_out)``, ascending, and the rows of the
-    list that add into each, in entry order; a short group is padded
-    with the entry count (one past the last entry)."""
-    own = _host(owners).reshape(-1).astype(np.int64)
-    rows = np.nonzero((own >= 0) & (own < v_out))[0]
-    rows = rows[np.argsort(own[rows], kind="stable")]
-    uniq, first, count = np.unique(own[rows], return_index=True,
-                                   return_counts=True)
-    depth = int(count.max()) if count.size else 1
-    index = np.full((uniq.size, depth), own.size, np.int32)
-    group = np.repeat(np.arange(uniq.size), count)
-    index[group, np.arange(rows.size) - first[group]] = rows
-    return uniq.astype(np.int32), index
-
-
 def tile_owners(res_tile, v_out: int) -> np.ndarray:
     """Owner of every slot of a tile-grouped spill tier (T2, R, 3)
     [local, tap, src], flattened; a padding slot gets ``v_out``."""

@@ -25,10 +25,10 @@ windowed subm and cross-level convs are ``torch.autograd.Function``s
 whose backward runs K2 (fused dfeats + dW) or K3/K5 (dW) with K1/K4 on
 the cotangent (dfeats), plus the spill tiers' dW and dfeats (see
 "Backward routes" below).  Every pass adds a plan's spill tiers onto the
-windowed result with one kernel: K8 (``spill_apply``) for a forward or
-a dfeats, K9 (``spill_dw``) for a dW.  On a CUDA tensor every windowed
-evaluation launches its kernel; on a CPU tensor the same calls run the
-kernels' plain versions.
+windowed result with one kernel over the plan's ``spill_order``: K8
+(``spill_apply``) for a forward or a dfeats, K9 (``spill_dw``) for a dW.
+On a CUDA tensor every windowed evaluation launches its kernel; on a CPU
+tensor the same calls run the kernels' plain versions.
 
 A ``-1`` rulebook entry means "no neighbour": every gather here masks it
 (torch indexing, like numpy, would wrap it to the last row).
@@ -41,16 +41,12 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from tdwss_torch.ops.plan import owner_groups, spill_order
+from tdwss_torch.ops.plan import spill_order
 from tdwss_torch.ops.windowed import (spill_apply, spill_dw,
                                      windowed_bwd_gather, windowed_bwd_sub,
                                      windowed_dw, windowed_dw_sub,
                                      windowed_matmul, windowed_matmul_sub)
 from tdwss_torch.utils import profiling
-
-_RES_HCHUNK = 512     # must match tdwss_torch.ops.host_plan._RES_HCHUNK
-_RES_TILE = 512       # must match tdwss_torch.ops.host_plan._RES_TILE
-
 
 def _gather_rows(feats: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """feats[idx] along dim 0 with out-of-range (incl. negative) ids
@@ -123,11 +119,15 @@ class _RulebookConv(torch.autograd.Function):
 
 # ---------------------------------------------------------------------------
 # Spill tiers: the rulebook entries the windows miss, as (owner, tap, src).
-# The routes add them with K8 and K9 over the plan's ``spill_order``
-# (:func:`_spill_add`, :func:`_spill_dw`).  The functions below evaluate
-# them tier by tier in plain torch, as the reference's functions of the
-# same names do: the tests hold them against the reference, and K8's and
-# K9's plain versions against them.
+# Every pass adds all of a plan's tiers with one kernel over the plan's
+# ``spill_order`` (the host planner's layout of the tiers): K8 for a
+# forward or a dfeats (:func:`_spill_add`), K9 for a dW (:func:`_spill_dw`);
+# on a CPU tensor they run their plain versions.  A dW with ``flip``
+# evaluates each entry in the flipped orientation, feats[owner] (x)
+# dout[src] into slot K-1-tap (slot tap with ``tap_flip=False``, the
+# cross-level maps, whose tap is the child offset in both directions).
+# K2's windowed dW covers the flip of the windowed entry set, so the spill
+# set must be flipped too for the union to cover the rulebook exactly once.
 # ---------------------------------------------------------------------------
 
 
@@ -156,257 +156,13 @@ def _spill_dw(feats, dout, plan, dw, flip=False, tap_flip=True):
     """``dw`` (K, C, Cout) f32 plus the plan's spill tiers' dW: one K9
     pass, in place.  ``flip``: each entry (owner, tap, src) in the flipped
     orientation, feats[owner] (x) dout[src], into slot K-1-tap (slot tap
-    with ``tap_flip=False``); see ``_res_all_dw``."""
+    with ``tap_flip=False``); see above."""
     so = _layout(plan, feats.device)
     if so.entries:
         profiling.count("tdwss.conv.spill_entries", so.entries)
         spill_dw(feats, dout, so.tap_entry, so.chunk, so.tap_chunk, dw,
                  flip=flip, flip_taps=flip and tap_flip)
     return dw
-
-
-def _live_entries(n_left, n_right, lrows, taps, rrows, k):
-    return ((lrows >= 0) & (lrows < n_left) & (rrows >= 0)
-            & (rrows < n_right) & (taps >= 0) & (taps < k))
-
-
-def _segment_sum(contrib, groups, out_len):
-    """(out_len, Cout) f32: each owner's row is the sum of its entries'
-    contribution rows, taken in entry order; other rows are zero.
-
-    ``groups`` = (owner (U,), index (U, D)) from
-    :func:`tdwss_torch.ops.plan.owner_groups`;
-    a short group's padding points one past the last contribution row,
-    which reads zero.  The sum is a fixed sequence of gathers and adds
-    and the owners are distinct, so no two writes meet: the result is
-    the same bit for bit on every run (``index_add_`` on CUDA adds with
-    atomics, in an order that changes from run to run).
-    """
-    out = torch.zeros((out_len, contrib.shape[1]), dtype=torch.float32,
-                      device=contrib.device)
-    owner, index = (torch.as_tensor(g, device=contrib.device)
-                    for g in groups)
-    if owner.shape[0] == 0:
-        return out
-    rows = torch.cat([contrib, contrib.new_zeros((1, contrib.shape[1]))])
-    index = index.long()
-    total = rows[index[:, 0]]
-    for j in range(1, index.shape[1]):
-        total = total + rows[index[:, j]]
-    out[owner.long()] = total
-    return out
-
-
-def _entry_apply(feats, owners, taps, srcs, w3, out_len):
-    """(out_len, Cout) f32: out[owner] += feats[src] @ w3[tap] over live
-    entries, each owner's entries summed in entry order
-    (:func:`_segment_sum`).
-
-    Dead entries (owner, src or tap out of range: the planner's padding)
-    read zeros.  Each entry's contribution is the sum over taps of its
-    tap-masked row times w3[a] (one nonzero term, so the value is the
-    single product).
-    """
-    k = w3.shape[0]
-    live = _live_entries(feats.shape[0], out_len, srcs, taps, owners, k)
-    f = _gather_rows(feats, torch.where(live, srcs, -1)).float()
-    w = w3.to(feats.dtype).float()
-    contrib = torch.zeros((f.shape[0], w.shape[-1]), dtype=torch.float32,
-                          device=feats.device)
-    for a in range(k):
-        contrib += (f * (taps == a).unsqueeze(-1)) @ w[a]
-    return _segment_sum(contrib, owner_groups(owners, out_len), out_len)
-
-
-def _entry_dw(feats, dout, lrows, taps, rrows, k):
-    """dW (K*C, Cout) f32: feats[lrow]^T (x) dout[rrow] summed into slot
-    ``tap`` over live entries (dead ones read zeros)."""
-    live = _live_entries(feats.shape[0], dout.shape[0], lrows, taps, rrows, k)
-    f = _gather_rows(feats, torch.where(live, lrows, -1)).float()
-    d = _gather_rows(dout, rrows).to(feats.dtype).float()
-    dw = torch.empty((k, f.shape[1], d.shape[1]), dtype=torch.float32,
-                     device=feats.device)
-    for a in range(k):
-        dw[a] = (f * (taps == a).unsqueeze(-1)).t() @ d
-    return dw.reshape(k * f.shape[1], d.shape[1])
-
-
-def _res_ovf_apply(feats, res_ovf, ovf_v, ovf_count, w2d, cout,
-                   out_len=None):
-    """Compact spill list [v, tap, src] -> (out_len, Cout) f32.
-
-    The reference sums each owner's run of entries (``ovf_v`` /
-    ``ovf_count``) before one scatter; the owner groups here are the same
-    runs.
-    """
-    v = out_len if out_len is not None else feats.shape[0]
-    w3 = w2d.reshape(-1, feats.shape[-1], cout)
-    return _entry_apply(feats, res_ovf[:, 0], res_ovf[:, 1], res_ovf[:, 2],
-                        w3, v)
-
-
-def _tile_entries(res_tile, v_out):
-    """Tile-grouped spills (T2, R, 3) [local, tap, src] -> flat (owner,
-    tap, src); the owner of a slot is tile * (v_out / T2) + local, and a
-    padding slot (local >= v_out / T2) gets the out-of-range owner v_out."""
-    t2, r, _ = res_tile.shape
-    t_res = v_out // t2
-    local = res_tile[..., 0]
-    tile_ids = torch.arange(t2, device=res_tile.device,
-                            dtype=local.dtype)[:, None]
-    owners = torch.where(local < t_res, tile_ids * t_res + local,
-                         torch.full_like(local, v_out))
-    return (owners.reshape(-1), res_tile[..., 1].reshape(-1),
-            res_tile[..., 2].reshape(-1))
-
-
-def _res_tile_apply(feats, res_tile, w2d, cout, v_out):
-    """Tile-grouped spills -> (v_out, Cout), feats dtype."""
-    owners, taps, srcs = _tile_entries(res_tile, v_out)
-    w3 = w2d.reshape(-1, feats.shape[-1], cout)
-    return _entry_apply(feats, owners, taps, srcs, w3,
-                        v_out).to(feats.dtype)
-
-
-def _res_heavy_apply(feats, res_hent, res_htile, w2d, cout, v_out, t2,
-                     tent=None, ttap=None, tperm=None):
-    """Heavy-tile spills -> (v_out, Cout), feats dtype.
-
-    With the tap-chunked companion (``tent`` [src, owner] rows, one tap
-    per ``_RES_HCHUNK``-row chunk in ``ttap``) the contributions are one
-    batched (chunk, C) @ (C, Cout) product per chunk; otherwise the
-    owner-chunked ``res_hent`` rows [owner, tap, src] are applied entry by
-    entry.  ``res_htile`` / ``tperm`` only lay out the reference's TPU
-    scatter and are not needed here.
-    """
-    cin = feats.shape[-1]
-    w3 = w2d.reshape(-1, cin, cout)
-    if tent is not None and ttap is not None and tent.shape[0]:
-        nc = ttap.shape[0]
-        f = _gather_rows(feats, tent[:, 0]).float()
-        wsel = w3.to(feats.dtype).float()[ttap.long()]       # (NC, C, Cout)
-        contrib = torch.bmm(f.reshape(nc, _RES_HCHUNK, cin), wsel)
-        out = _segment_sum(contrib.reshape(-1, cout),
-                           owner_groups(tent[:, 1], v_out), v_out)
-    else:
-        out = _entry_apply(feats, res_hent[:, 0], res_hent[:, 1],
-                           res_hent[:, 2], w3, v_out)
-    return out.to(feats.dtype)
-
-
-def _res_all_apply(feats, rtile, res_ovf, ovf_v, ovf_count, w2d, cout,
-                   out_len=None):
-    """Every spill tier of one windowed plan -> (out_len, Cout), feats dtype.
-
-    ``rtile`` = (res_tile, res_hent, res_htile, res_tent, res_ttap,
-    res_tperm), any of them None.  Each tier is a segmented sum, its
-    owner groups built on the host, and the tiers are added in a fixed
-    order, so the result is reproducible bit for bit.
-    """
-    v = out_len if out_len is not None else feats.shape[0]
-    out = torch.zeros((v, cout), dtype=feats.dtype, device=feats.device)
-    if res_ovf.shape[0]:
-        out = _res_ovf_apply(feats, res_ovf, ovf_v, ovf_count, w2d, cout,
-                             out_len=v).to(feats.dtype)
-    res_tile, res_hent, res_htile, tent, ttap, tperm = rtile
-    if tent is not None and not tent.shape[0]:
-        tent = ttap = tperm = None
-    if res_tile is not None and res_tile.shape[0] and res_tile.shape[1]:
-        out = out + _res_tile_apply(feats, res_tile, w2d, cout, v)
-    if (res_hent is not None and res_htile is not None
-            and res_hent.shape[0] and v % _RES_TILE == 0):
-        out = out + _res_heavy_apply(feats, res_hent, res_htile, w2d, cout,
-                                     v, v // _RES_TILE, tent, ttap, tperm)
-    return out
-
-
-# ---------------------------------------------------------------------------
-# Spill tiers' dW.  ``flip``: evaluate each entry (owner, tap, src) in the
-# flipped orientation, feats[owner] (x) dout[src] into slot K-1-tap (slot
-# tap with ``tap_flip=False``, the cross-level maps, whose tap is the
-# child offset in both directions).  K2's windowed dW covers the flip of
-# the windowed entry set, so the spill set must be flipped too for the
-# union to cover the rulebook exactly once.
-# ---------------------------------------------------------------------------
-
-
-def _flip_taps(taps, k, flip, tap_flip):
-    return (k - 1) - taps if (flip and tap_flip) else taps
-
-
-def _res_ovf_dw(feats, res_ovf, dout, k=27, flip=False, tap_flip=True):
-    """Compact spill list [owner, tap, src] -> (K*C, Cout) f32."""
-    owner, tap, src = res_ovf[:, 0], res_ovf[:, 1], res_ovf[:, 2]
-    tap = _flip_taps(tap, k, flip, tap_flip)
-    if flip:
-        return _entry_dw(feats, dout, owner, tap, src, k)
-    return _entry_dw(feats, dout, src, tap, owner, k)
-
-
-def _res_tile_dw(feats, res_tile, dout, k=27, flip=False, tap_flip=True):
-    """Tile-grouped spills -> (K*C, Cout) f32.  The owners live in dout's
-    domain, or in feats' when flipped."""
-    owner, tap, src = _tile_entries(
-        res_tile, feats.shape[0] if flip else dout.shape[0])
-    tap = _flip_taps(tap, k, flip, tap_flip)
-    if flip:
-        return _entry_dw(feats, dout, owner, tap, src, k)
-    return _entry_dw(feats, dout, src, tap, owner, k)
-
-
-def _res_heavy_dw(feats, res_hent, dout, k=27, tent=None, ttap=None,
-                  flip=False, tap_flip=True):
-    """Heavy-tile spills -> (K*C, Cout) f32.
-
-    With the tap-chunked companion (``tent`` [src, owner] rows, one tap
-    per ``_RES_HCHUNK``-row chunk in ``ttap``) each chunk is one
-    (C, chunk) @ (chunk, Cout) product, summed into its tap slot by a
-    one-hot (K, chunks) matmul; otherwise the owner-chunked ``res_hent``
-    rows [owner, tap, src] are taken entry by entry.  The reference also
-    reuses the forward's tap-ordered feats gather (``f_tap``); here the
-    gather is made again.
-    """
-    if tent is not None and ttap is not None:
-        cin, cout = feats.shape[-1], dout.shape[-1]
-        nc = ttap.shape[0]
-        fcol, dcol = (1, 0) if flip else (0, 1)
-        tapv = _flip_taps(ttap, k, flip, tap_flip).long()
-        f = _gather_rows(feats, tent[:, fcol]).float()
-        d = _gather_rows(dout, tent[:, dcol]).to(feats.dtype).float()
-        g = torch.bmm(f.reshape(nc, _RES_HCHUNK, cin).transpose(1, 2),
-                      d.reshape(nc, _RES_HCHUNK, cout))    # (NC, C, Cout)
-        oh = (torch.arange(k, device=feats.device)[:, None]
-              == tapv[None, :]).float()
-        return (oh @ g.reshape(nc, cin * cout)).reshape(k * cin, cout)
-    owner, tap, src = res_hent[:, 0], res_hent[:, 1], res_hent[:, 2]
-    tap = _flip_taps(tap, k, flip, tap_flip)
-    if flip:
-        return _entry_dw(feats, dout, owner, tap, src, k)
-    return _entry_dw(feats, dout, src, tap, owner, k)
-
-
-def _res_all_dw(feats, rtile, res_ovf, dout, k=27, flip=False,
-                tap_flip=True):
-    """Every spill tier's dW -> (K*C, Cout) f32 (raw tap order)."""
-    cin = feats.shape[-1]
-    dw = torch.zeros((k * cin, dout.shape[-1]), dtype=torch.float32,
-                     device=feats.device)
-    if res_ovf.shape[0]:
-        dw = _res_ovf_dw(feats, res_ovf, dout, k, flip, tap_flip)
-    res_tile, res_hent, _, tent, ttap, _ = rtile
-    if tent is not None and not tent.shape[0]:
-        tent = ttap = None
-    if res_tile is not None and res_tile.shape[0] and res_tile.shape[1]:
-        dw = dw + _res_tile_dw(feats, res_tile, dout, k, flip, tap_flip)
-    if res_hent is not None and res_hent.shape[0]:
-        dw = dw + _res_heavy_dw(feats, res_hent, dout, k, tent, ttap, flip,
-                                tap_flip)
-    return dw
-
-
-def _pack_rtile(win):
-    return (win.res_tile, win.res_hent, win.res_htile, win.res_tent,
-            win.res_ttap, win.res_tperm)
 
 
 # ---------------------------------------------------------------------------

@@ -2,13 +2,16 @@
 reference and port configurations, one planned val batch in each package,
 seeded flax variables for MultiLabel over SparseConvUNet, reference plans
 as port plan objects, and a call counter for the conv routes' kernel
-entry points."""
+entry points; and each test process's thread cap."""
 
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import torch
+from threadpoolctl import threadpool_limits
 
 from tdwss.config import (Config, EngineConfig, PointcloudDataConfig,
                           PointcloudModelConfig)
@@ -29,9 +32,29 @@ from tdwss_torch.data.synthetic import make_dataset
 from tdwss_torch.models.meta_arch import build_model
 from tdwss_torch.ops import sparse_conv as port_sc
 from tdwss_torch.ops.host_plan import reset_sticky_plans
-from tdwss_torch.ops.plan import with_spill_order
+from tdwss_torch.ops.plan import Windowed27, with_spill_order
 
 F32_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def _cap_threads():
+    """Each test process's share of the host's cores, max(1, cores //
+    workers) with ``workers`` the xdist worker count (1 outside xdist):
+    torch's intra-op threads and numpy's BLAS pool now, and
+    ``OMP_NUM_THREADS`` for the processes it starts.  Every xdist worker
+    collects this module before its first test.  With a thread per core
+    in every worker, the workers' pools outnumber the cores several times
+    over, and the suite's seconds measure waiting for a core rather than
+    work."""
+    cores = len(os.sched_getaffinity(0))
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    n = max(1, cores // workers)
+    torch.set_num_threads(n)
+    threadpool_limits(n)
+    os.environ["OMP_NUM_THREADS"] = str(n)
+
+
+_cap_threads()
 
 
 def _cfgs(dtype):
@@ -119,6 +142,18 @@ def port_plan_of(ref_obj, cls):
     return with_spill_order(cls(**{f.name: getattr(ref_obj, f.name)
                                    for f in dataclasses.fields(cls)
                                    if hasattr(ref_obj, f.name)})).to("cpu")
+
+
+def tiers_only(ref_obj, **tiers):
+    """The reference plan ``ref_obj`` as a port ``Windowed27`` that keeps
+    only the given spill tiers (the others empty), its spill order built
+    again."""
+    keep = dict(res_ovf=np.zeros((0, 3), np.int32), res_tile=None,
+                res_hent=None, res_htile=None, res_tent=None, res_ttap=None,
+                res_tperm=None)
+    keep.update(tiers)
+    pw = port_plan_of(ref_obj, Windowed27)
+    return with_spill_order(pw.replace(spill_order=None, **keep))
 
 
 def count_route_calls(monkeypatch, names):

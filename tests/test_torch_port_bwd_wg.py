@@ -8,11 +8,15 @@ dW, against the reference.
     ``jax.grad`` through the reference with its Pallas route forced on the
     CPU (interpret mode), as ``tests/test_sparse_conv.py:811-852`` does.
     float32, rtol = atol = 2e-4 (summation order).
-(c) ``_res_all_dw`` (compact list, heavy tiers with and without the
-    tap-chunked companion) in both orientations against the reference on
-    a plan whose heavy tier is populated, float32, rtol = atol = 1e-4;
-    and the tile-grouped tier's dW, which the reference planners never
-    fill, against the compact-list dW of the same entries.
+(c) The spill tiers' dW: K9's plain version (``_spill_dw``) in the
+    three orientations on a plan whose heavy tier is populated, against
+    the reference's ``_res_all_dw`` (every tier, the heavy one through
+    its tap-chunked companion) and, on the heavy tier alone, against its
+    ``_res_heavy_dw`` entry by entry; and on a plan whose only tier is a
+    tile-grouped one (which the reference planners never fill), against
+    the reference's ``_res_tile_dw`` where it honours ``tap_flip`` and
+    against its ``_res_ovf_dw`` of the same entries as a compact list in
+    every orientation.  float32, rtol = atol = 1e-4 (summation order).
 """
 
 import functools
@@ -23,7 +27,8 @@ import numpy as np
 import pytest
 import torch
 
-from tests._torch_port_common import count_route_calls, port_plan_of
+from tests._torch_port_common import (count_route_calls, port_plan_of,
+                                      tiers_only)
 from tdwss.ops import pallas_subm as ps
 from tdwss.ops import sparse_conv as ref_sc
 from tdwss.ops.host_plan import (build_subm_rulebook_np,
@@ -145,6 +150,14 @@ def heavy_plan():
     return win, n
 
 
+def _spill_dw(feats, dout, pw, flip, tap_flip):
+    """K9's plain version (``_spill_dw``) onto a zero dW -> (K*C, Cout)."""
+    k, c, cout = pw.rb_local.shape[1], feats.shape[1], dout.shape[1]
+    dw = port_sc._spill_dw(feats, dout, pw, torch.zeros((k, c, cout)),
+                           flip, tap_flip)
+    return dw.reshape(k * c, cout)
+
+
 @pytest.mark.parametrize("flip,tap_flip", [(False, True), (True, True),
                                            (True, False)])
 def test_spill_dw_tiers_match_reference(heavy_plan, flip, tap_flip):
@@ -154,35 +167,36 @@ def test_spill_dw_tiers_match_reference(heavy_plan, flip, tap_flip):
     c, cout = 6, 5
     feats = rng.normal(size=(v, c)).astype(np.float32)
     dout = rng.normal(size=(v, cout)).astype(np.float32)
-    pw = port_plan_of(win, port_plan.Windowed27)
+    ft, dt = torch.from_numpy(feats), torch.from_numpy(dout)
     rt_ref = ref_sc._pack_rtile(jax.tree_util.tree_map(jnp.asarray, win))
     ref = ref_sc._res_all_dw(jnp.asarray(feats), rt_ref,
                              jnp.asarray(win.res_ovf), jnp.asarray(dout),
                              flip=flip, tap_flip=tap_flip)
-    out = port_sc._res_all_dw(torch.from_numpy(feats),
-                              port_sc._pack_rtile(pw), pw.res_ovf,
-                              torch.from_numpy(dout), flip=flip,
-                              tap_flip=tap_flip)
+    out = _spill_dw(ft, dt, port_plan_of(win, port_plan.Windowed27), flip,
+                    tap_flip)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **DW_TOL)
-    # the heavy tier entry by entry (no tap-chunked companion)
+    # the heavy tier alone, against the reference's entry-by-entry form
+    # (no tap-chunked companion)
     ref_h = ref_sc._res_heavy_dw(jnp.asarray(feats),
                                  jnp.asarray(win.res_hent),
                                  jnp.asarray(dout), flip=flip,
                                  tap_flip=tap_flip)
-    out_h = port_sc._res_heavy_dw(torch.from_numpy(feats), pw.res_hent,
-                                  torch.from_numpy(dout), flip=flip,
-                                  tap_flip=tap_flip)
+    out_h = _spill_dw(ft, dt, tiers_only(win, res_hent=win.res_hent,
+                                          res_htile=win.res_htile),
+                      flip, tap_flip)
     np.testing.assert_allclose(out_h.numpy(), np.asarray(ref_h), **DW_TOL)
 
 
 @pytest.mark.parametrize("flip,tap_flip", [(False, True), (True, True),
                                            (True, False)])
 def test_tile_tier_dw_equals_compact_list_dw(heavy_plan, flip, tap_flip):
-    """The tile-grouped tier (T2, R, 3) [local, tap, src] holds the same
-    entries as a compact [owner, tap, src] list, so its dW must equal the
-    compact list's in every orientation (the reference's ``_res_tile_dw``
-    flips the taps whenever ``flip`` is set, ignoring ``tap_flip``; the
-    port honours it, as its other tiers do)."""
+    """K9 on a plan whose only tier is a tile-grouped one (T2, R, 3)
+    [local, tap, src] against the reference's ``_res_tile_dw``, and
+    against its compact-list dW (``_res_ovf_dw``) of the same entries in
+    every orientation: the reference's ``_res_tile_dw`` flips the taps
+    whenever ``flip`` is set, ignoring ``tap_flip`` (the port honours it,
+    as its other tiers do), so with ``tap_flip=False`` only the compact
+    list's dW states the case."""
     win, v = heavy_plan
     ent = win.res_hent[win.res_hent[:, 0] < v]
     r = 8
@@ -201,9 +215,13 @@ def test_tile_tier_dw_equals_compact_list_dw(heavy_plan, flip, tap_flip):
     rng = np.random.default_rng(25)
     feats = torch.from_numpy(rng.normal(size=(v, 4)).astype(np.float32))
     dout = torch.from_numpy(rng.normal(size=(v, 3)).astype(np.float32))
-    out = port_sc._res_tile_dw(feats, torch.from_numpy(res_tile), dout,
-                               flip=flip, tap_flip=tap_flip)
-    ref = ref_sc._res_ovf_dw(jnp.asarray(feats.numpy()), jnp.asarray(kept),
-                             jnp.asarray(dout.numpy()), flip=flip,
+    out = _spill_dw(feats, dout, tiers_only(win, res_tile=res_tile), flip,
+                    tap_flip)
+    fj, dj = jnp.asarray(feats.numpy()), jnp.asarray(dout.numpy())
+    ref = ref_sc._res_ovf_dw(fj, jnp.asarray(kept), dj, flip=flip,
                              tap_flip=tap_flip)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **DW_TOL)
+    if tap_flip or not flip:
+        ref_t = ref_sc._res_tile_dw(fj, jnp.asarray(res_tile), dj,
+                                    flip=flip, tap_flip=tap_flip)
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref_t), **DW_TOL)

@@ -71,9 +71,8 @@ runpy.run_module(module, run_name="__main__", alter_sys=True)
 
 
 def _run(module, config, cwd, *extra):
-    # one intra-op thread: the test workers already share the cores, and a
-    # child with a thread per core slows several-fold under their load
-    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    # the child inherits the test process's thread cap (OMP_NUM_THREADS)
+    env = dict(os.environ, PYTHONPATH=REPO)
     return subprocess.run(
         [sys.executable, "-c", _BOOT, module, "--config", config, *extra],
         cwd=cwd, env=env, capture_output=True, text=True, timeout=300)

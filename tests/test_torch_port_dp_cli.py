@@ -40,7 +40,8 @@ ENGINE:
 def test_torchrun_cli_trains_mesh_data_2_on_the_cpu(tmp_path):
     cfg = tmp_path / "dp.yaml"
     cfg.write_text(_TINY_DP)
-    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    # the ranks inherit the test process's thread cap (OMP_NUM_THREADS)
+    env = dict(os.environ, PYTHONPATH=REPO)
     r = subprocess.run(
         [sys.executable, "-m", "torch.distributed.run", "--standalone",
          "--nproc_per_node", "2", "-m", "tdwss_torch.cli.train",

@@ -8,9 +8,14 @@
     order.
 (b) The spill tiers and ``subm_conv_apply`` / ``wg_conv_apply`` /
     ``wg_unpool_apply`` against the reference on the CPU (Pallas off, its
-    einsum route) for the same host-built plans.  float32, rtol = atol =
-    1e-4: the reference's spill tiers sum through one-hot matmuls, the
-    port's through index_add, so the summation order differs.
+    einsum route) for the same host-built plans.  The spill tiers: K8's
+    plain version (``_spill_add``) on a plan that keeps the heavy tier,
+    the compact list or a tile tier alone, then all of them, against the
+    reference's ``_res_heavy_apply``, ``_res_ovf_apply``,
+    ``_res_tile_apply`` and ``_res_all_apply``.  float32, rtol = atol =
+    1e-4: the reference's spill tiers sum through one-hot matmuls and
+    prefix sums, K8 each owner's entries in entry order, so the summation
+    order differs.
 """
 
 import dataclasses
@@ -21,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests._torch_port_common import tiers_only
 from tdwss.ops import sparse_conv as ref_sc
 from tdwss.ops.host_plan import (build_plans_np, build_windowed_gather,
                                  build_windowed_subm27, reset_sticky_plans,
@@ -237,27 +243,34 @@ def test_wg_conv_and_unpool_match_reference(plans, flat):
 
 
 def test_spill_tiers_match_reference(plans):
-    """Each tier alone, on the same spill arrays, in both packages."""
+    """K8's plain version (``_spill_add``) on a plan that keeps one tier,
+    then all of them, against the reference's function of that tier on
+    the same spill arrays."""
     rng = np.random.default_rng(23)
     win = plans["win_flat"]
     v = plans["v"]
     c, cout = 6, 5
     feats = rng.normal(size=(v, c)).astype(np.float32)
     w2d = rng.normal(size=(27 * c, cout)).astype(np.float32)
-    fj, wj, ft, wt = (jnp.asarray(feats), jnp.asarray(w2d), _t(feats),
-                      _t(w2d))
+    fj, wj, ft = jnp.asarray(feats), jnp.asarray(w2d), _t(feats)
+    w3 = _t(w2d).reshape(27, c, cout)
+
+    def spill_add(pw):
+        return port_sc._spill_add(ft, pw, w3, torch.zeros((v, cout)))
+
     assert (win.res_hent[:, 0] < v).sum() > 0
-    # heavy tier, tap-chunked and owner-chunked
+    # heavy tier, its spill order read from the owner-chunked rows and
+    # from the tap-chunked companion
     ref = ref_sc._res_heavy_apply(fj, jnp.asarray(win.res_hent),
                                   jnp.asarray(win.res_htile), wj, cout, v,
                                   v // 512, jnp.asarray(win.res_tent),
                                   jnp.asarray(win.res_ttap),
                                   jnp.asarray(win.res_tperm))
-    for tent in (True, False):
-        out = port_sc._res_heavy_apply(
-            ft, _t(win.res_hent), _t(win.res_htile), wt, cout, v, v // 512,
-            _t(win.res_tent) if tent else None,
-            _t(win.res_ttap) if tent else None, None)
+    heavy = dict(res_tent=win.res_tent, res_ttap=win.res_ttap,
+                 res_tperm=win.res_tperm)
+    for tiers in (dict(heavy, res_hent=win.res_hent,
+                       res_htile=win.res_htile), heavy):
+        out = spill_add(tiers_only(win, **tiers))
         np.testing.assert_allclose(out.numpy(), np.asarray(ref), **CONV_TOL)
     # compact overflow list: the whole spill set in one v-sorted list
     ent = win.res_hent[win.res_hent[:, 0] < v]
@@ -265,8 +278,8 @@ def test_spill_tiers_match_reference(plans):
     owners, counts = np.unique(ent[:, 0], return_counts=True)
     ref = ref_sc._res_ovf_apply(fj, jnp.asarray(ent), jnp.asarray(owners),
                                 jnp.asarray(counts), wj, cout)
-    out = port_sc._res_ovf_apply(ft, _t(ent), _t(owners), _t(counts), wt,
-                                 cout)
+    out = spill_add(tiers_only(win, res_ovf=ent, ovf_v=owners,
+                                ovf_count=counts))
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **CONV_TOL)
     # tile-grouped tier (T2, R, 3) [local, tap, src], pad local == 512
     r = 8
@@ -279,16 +292,14 @@ def test_spill_tiers_match_reference(plans):
         res_tile[t, :len(rows), 0] = rows[:, 0] % 512
         res_tile[t, :len(rows), 1:] = rows[:, 1:]
     ref = ref_sc._res_tile_apply(fj, jnp.asarray(res_tile), wj, cout, v)
-    out = port_sc._res_tile_apply(ft, _t(res_tile), wt, cout, v)
+    out = spill_add(tiers_only(win, res_tile=res_tile))
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **CONV_TOL)
     # all tiers together
     rtile_ref = ref_sc._pack_rtile(_jnp(win))
     ref = ref_sc._res_all_apply(fj, rtile_ref, jnp.asarray(win.res_ovf),
                                 jnp.asarray(win.ovf_v),
                                 jnp.asarray(win.ovf_count), wj, cout)
-    pw = _port(win, port_plan.Windowed27)
-    out = port_sc._res_all_apply(ft, port_sc._pack_rtile(pw), pw.res_ovf,
-                                 pw.ovf_v, pw.ovf_count, wt, cout)
+    out = spill_add(_port(win, port_plan.Windowed27))
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **CONV_TOL)
 
 

@@ -58,17 +58,6 @@ KERNELS = ["windowed_matmul_sub", "windowed_matmul", "windowed_bwd_gather",
            "windowed_bwd_sub", "windowed_dw_sub", "windowed_dw"]
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread for this module: the plain rulebook route's
-    many small ops slow down many-fold when the test workers' thread
-    pools share the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 _MODELS = {
     "fcnet": dict(name="SparseConvFCNet", m=4, full_scale=128,
                   block_reps=1, depth=3),

@@ -11,19 +11,28 @@ on the CPU) and the windowed unpool.
     with ``index_add_`` into their owners: float32, within 1e-6 (one sum
     in another order); two runs bit-identical.
 (c) K8's and K9's plain versions through the routes' helpers
-    (``_spill_add``, ``_spill_dw``) against the tier-by-tier functions
-    they replace (``_res_all_apply`` and ``_res_all_dw`` added onto the
-    windowed result) on every tier layout the planners make: the compact
-    list only, heavy with and without the tap-chunked companion, a tile
-    tier, no spills, and the cross-level maps, in float32 and bfloat16,
-    for the forward and the three dW orientations.  The forward is equal
-    bit for bit in float32 and within one bfloat16 ulp in bfloat16 (the
-    planners give each owner one tier, so one rounding).  dW: bit for bit
-    where the old code summed each tap in the same chunks (the heavy
-    tier's tap-chunked companion); where it summed a tier's whole list in
-    one library GEMM (whose blocking the library chooses), within the
-    float32 rounding bound of both sums, 2 (m + 2) 2^-24 sum|terms| with m
-    a tap's entries.
+    (``_spill_add``, ``_spill_dw``) against the reference's
+    ``_res_all_apply`` and ``_res_all_dw`` added onto the windowed result,
+    on every tier layout the planners make: the compact list only, heavy
+    with and without the tap-chunked companion, a tile tier, no spills,
+    and the cross-level maps, in float32 and bfloat16 (the reference in
+    float32 on the bfloat16-rounded inputs), for the forward and the three
+    dW orientations; two runs of the port equal bit for bit.  Each
+    layout and pass's reference is computed once, for both dtypes.
+    Bound: the float32 rounding bound of two sums of the same terms,
+    2 (m + 2) 2^-24 sum|terms| (the windowed result's |value| among the
+    terms), with m the owner's entries times C for the forward and a
+    tap's entries for dW.  On the compact list's owners the forward also
+    allows the reference's own rounding of its prefix sums (it takes an
+    owner's sum as the difference of two prefix sums over the whole
+    list), measured against their exact value.  The bfloat16 forward
+    rounds the spill sum and then its sum with the windowed result, as
+    the reference's callers do: within one bfloat16 ulp, plus one ulp of
+    the spill sum where the two float32 sums may round to neighbouring
+    bfloat16 values.  The reference's ``_res_tile_dw`` flips the taps
+    whenever ``flip`` is set, so the tile layout's flipped dW with
+    ``tap_flip=False`` is held against the same entries as one compact
+    list.
 (d) ``wg_unpool_apply``: its forward equals a plain gather of each fine
     row's parent bit for bit, in float32 and bfloat16 (one product by 1
     per row, accumulated in f32); its gradient (the down map with
@@ -32,6 +41,7 @@ on the CPU) and the windowed unpool.
     route forced on the CPU (interpret mode), float32, rtol = atol = 2e-4.
 """
 import functools
+import types
 
 import jax
 import jax.numpy as jnp
@@ -187,6 +197,18 @@ def test_segmented_spill_sum_equals_index_add(plans, key):
                                atol=1e-6)
 
 
+def _runs(res_ovf, v_out):
+    """(ovf_v, ovf_count) of an owner-sorted compact list: each owner's
+    run, padded with (v_out, 0) to the list's length, as the planners pad
+    them."""
+    own = res_ovf[:, 0]
+    uniq, count = np.unique(own[own < v_out], return_counts=True)
+    ovf_v = np.full(res_ovf.shape[0], v_out, np.int32)
+    ovf_count = np.zeros(res_ovf.shape[0], np.int32)
+    ovf_v[:uniq.size], ovf_count[:uniq.size] = uniq, count
+    return ovf_v, ovf_count
+
+
 def _layout_of(plans, layout):
     """(plan with its spill order, V_src, V_out) of one tier layout."""
     n, nc = plans["n"], plans["nc"]
@@ -199,7 +221,8 @@ def _layout_of(plans, layout):
         win = win.replace(res_tent=None, res_ttap=None, res_tperm=None)
     elif layout == "empty":
         pad = np.full_like(win.res_ovf, n)
-        win = win.replace(res_ovf=pad)
+        win = win.replace(res_ovf=pad, ovf_v=np.full_like(win.ovf_v, n),
+                          ovf_count=np.zeros_like(win.ovf_count))
     elif layout == "tile":
         # the compact list's even 512-row tiles as a tile tier (T2, R, 3)
         # [local, tap, src], padding local == 512; the rest stays compact
@@ -216,7 +239,9 @@ def _layout_of(plans, layout):
             res_tile[t, :len(rows), 1:] = rows[:, 1:]
         rest = np.full_like(win.res_ovf, n)
         rest[:int((~moved).sum())] = ovf[~moved]
-        win = win.replace(res_ovf=rest, res_tile=res_tile)
+        ovf_v, ovf_count = _runs(rest, n)
+        win = win.replace(res_ovf=rest, ovf_v=ovf_v, ovf_count=ovf_count,
+                          res_tile=res_tile)
     win = port_plan.with_spill_order(win.replace(spill_order=None))
     return win.to("cpu"), (n, n)
 
@@ -230,13 +255,75 @@ def _ulps_bf16(x):
 LAYOUTS = ["compact", "heavy", "heavy_hent", "tile", "empty", "down", "up"]
 PASSES = {"apply": None, "dw": (False, True), "dw_flip": (True, True),
           "dw_flip_keep_taps": (True, False)}
+RTILE = ("res_tile", "res_hent", "res_htile", "res_tent", "res_ttap",
+         "res_tperm")
+U = 2.0 ** -24                          # float32's unit roundoff
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("pass_", list(PASSES))
-@pytest.mark.parametrize("layout", LAYOUTS)
-def test_spill_kernels_plain_match_tier_functions(plans, layout, pass_,
-                                                  dtype):
+def _jnp(t):
+    return jnp.asarray(np.asarray(t))
+
+
+def _ref_rtile(win):
+    """The plan's tiered spill arrays as the reference packs them."""
+    return ref_sc._pack_rtile(types.SimpleNamespace(
+        **{name: None if getattr(win, name) is None else
+           _jnp(getattr(win, name)) for name in RTILE}))
+
+
+def _ref_apply(win, feats, w3, v_out):
+    """The reference's ``_res_all_apply`` on the plan's tiers (float32
+    feats and weights) -> (V_out, Cout) float64, and the rounding of its
+    compact tier's prefix sums on each row (float64).
+
+    The reference takes a compact-list owner's sum as the difference of
+    two prefix sums over the whole list (``_prefix_rows``), so its
+    rounding there scales with those sums, not with the owner's terms:
+    each owner's row gets |P^ - P| at both ends of its run, P^ the
+    reference's prefix sums of its contributions and P their exact
+    (float64) prefix sums."""
+    k, c, cout = w3.shape
+    f, w2d = _jnp(feats), _jnp(w3.reshape(k * c, cout))
+    ovf = _jnp(win.res_ovf)
+    out = ref_sc._res_all_apply(f, _ref_rtile(win), ovf, _jnp(win.ovf_v),
+                                _jnp(win.ovf_count), w2d, cout,
+                                out_len=v_out)
+    slack = np.zeros((v_out, cout))
+    if win.res_ovf.shape[0]:
+        c2 = ref_sc._entry_contrib(f, ovf[:, 1], ovf[:, 2], w2d)
+        exact = np.cumsum(np.asarray(c2, np.float64), axis=0)
+        err = np.abs(np.asarray(ref_sc._prefix_rows(c2), np.float64)
+                     - np.concatenate([np.zeros((1, cout)), exact]))
+        count = np.asarray(win.ovf_count).astype(np.int64)
+        ends = np.cumsum(count)
+        own = np.asarray(win.ovf_v)
+        live = (own < v_out) & (count > 0)
+        slack[own[live]] = err[ends[live]] + err[ends[live] - count[live]]
+    return (torch.from_numpy(np.asarray(out, np.float64)),
+            torch.from_numpy(slack))
+
+
+def _ref_dw(win, feats, dout, k, flip, tap_flip):
+    """The reference's ``_res_all_dw`` on the plan's tiers -> (K, C,
+    Cout) float64."""
+    dw = ref_sc._res_all_dw(_jnp(feats), _ref_rtile(win), _jnp(win.res_ovf),
+                            _jnp(dout), k, flip=flip, tap_flip=tap_flip)
+    return torch.from_numpy(np.asarray(dw, np.float64)).reshape(
+        k, feats.shape[1], dout.shape[1])
+
+
+@pytest.fixture(scope="module")
+def references():
+    """{(layout, pass): (inputs, {dtype: reference})}: each layout and
+    pass's inputs and the reference's sums on them in float32 and on
+    their bfloat16 roundings, computed on first use."""
+    return {}
+
+
+def _case(plans, references, layout, pass_):
+    key = (layout, pass_)
+    if key in references:
+        return references[key]
     win, (v_src, v_out) = _layout_of(plans, layout)
     k = win.rb_local.shape[1]
     rng = np.random.default_rng(LAYOUTS.index(layout) * 8 + len(pass_))
@@ -245,43 +332,82 @@ def test_spill_kernels_plain_match_tier_functions(plans, layout, pass_,
     def rand(*shape):
         return torch.from_numpy(rng.normal(size=shape).astype(np.float32))
 
-    rtile = port_sc._pack_rtile(win)
-    entries = win.spill_order.entries
-    assert (entries == 0) == (layout == "empty")
+    refs = {}
     if PASSES[pass_] is None:
-        feats, w3 = rand(v_src, c).to(dtype), rand(k, c, cout)
-        base = rand(v_out, cout).to(dtype)
-        old = port_sc._res_all_apply(feats, rtile, win.res_ovf, win.ovf_v,
-                                     win.ovf_count, w3.reshape(k * c, cout),
-                                     cout, out_len=v_out)
-        want = base + old.to(dtype)
+        inputs = (rand(v_src, c), rand(k, c, cout), rand(v_out, cout))
+        for dtype in (torch.float32, torch.bfloat16):
+            feats, w3 = (t.to(dtype).float() for t in inputs[:2])
+            refs[dtype] = _ref_apply(win, feats, w3, v_out)
+    else:
+        flip, tap_flip = PASSES[pass_]
+        n_l, n_r = (v_out, v_src) if flip else (v_src, v_out)
+        inputs = (rand(n_l, c), rand(n_r, cout), rand(k, c, cout))
+        ref_win = win
+        if layout == "tile" and flip and not tap_flip:
+            # the reference's _res_tile_dw flips the taps whenever flip
+            # is set; the same entries as one compact list instead
+            ref_win, _ = _layout_of(plans, "compact")
+        for dtype in (torch.float32, torch.bfloat16):
+            feats, dout = (t.to(dtype).float() for t in inputs[:2])
+            refs[dtype] = _ref_dw(ref_win, feats, dout, k, flip, tap_flip)
+    references[key] = (win, (v_src, v_out), inputs, refs)
+    return references[key]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pass_", list(PASSES))
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_spill_kernels_plain_match_reference(plans, references, layout,
+                                             pass_, dtype):
+    win, (v_src, v_out), inputs, refs = _case(plans, references, layout,
+                                              pass_)
+    k = win.rb_local.shape[1]
+    c = inputs[0].shape[1]
+    so = win.spill_order
+    assert (so.entries == 0) == (layout == "empty")
+    if PASSES[pass_] is None:
+        feats, w3, base = (t.to(dtype) for t in inputs)
+        ref, slack = refs[dtype]
         got = port_sc._spill_add(feats, win, w3, base.clone())
         assert torch.equal(got, port_sc._spill_add(feats, win, w3,
                                                    base.clone()))
+        # the float32 rounding bound of two sums of the same terms,
+        # 2 (m + 2) 2^-24 sum|terms|, m = C x the owner's entries
+        ent = so.entry.long()
+        count = (so.start[1:] - so.start[:-1]).long()
+        own = torch.repeat_interleave(so.owner.long(), count)
+        fa, wa = feats.double().abs(), w3.to(dtype).double().abs()
+        absum = base.double().abs().index_add(
+            0, own, torch.einsum("ec,eco->eo", fa[ent[:, 0]], wa[ent[:, 1]]))
+        m = torch.zeros(v_out, dtype=torch.float64)
+        m[so.owner.long()] = c * count.double()
+        bound = 2 * (m[:, None] + 2) * U * absum + slack
         if dtype == torch.float32:
-            assert torch.equal(got, want)
-        else:
-            d = (got.float() - want.float()).abs()
-            assert (d <= _ulps_bf16(want.float())).all()
+            want = base.double() + ref
+            assert ((got.double() - want).abs() <= bound).all()
+            return
+        # bfloat16: both round the spill sum, then its sum with ``base``;
+        # within one ulp, and one more of the spill sum where the two
+        # float32 sums may fall on either side of a rounding boundary
+        want = (base + ref.to(dtype)).float()
+        r32 = ref.float()
+        lo, hi = ((ref + s * bound).to(dtype) for s in (-1, 1))
+        ulps = _ulps_bf16(want) + torch.where(
+            lo != hi, _ulps_bf16(r32.to(dtype).float()), torch.zeros(()))
+        assert ((got.float() - want).abs() <= ulps).all()
         return
     flip, tap_flip = PASSES[pass_]
-    n_l, n_r = (v_out, v_src) if flip else (v_src, v_out)
-    feats, dout = rand(n_l, c).to(dtype), rand(n_r, cout).to(dtype)
-    base = rand(k, c, cout)
-    old = port_sc._res_all_dw(feats, rtile, win.res_ovf, dout, k, flip,
-                              tap_flip)
-    want = base + old.reshape(k, c, cout)
+    feats, dout = (t.to(dtype) for t in inputs[:2])
+    base = inputs[2]
     got = port_sc._spill_dw(feats, dout, win, base.clone(), flip, tap_flip)
     assert torch.equal(got, port_sc._spill_dw(feats, dout, win,
                                               base.clone(), flip, tap_flip))
-    if layout in ("heavy", "empty"):
-        assert torch.equal(got, want)
-        return
+    want = base.double() + refs[dtype]
     # the float32 rounding bound of two sums of the same terms
-    ent = np.asarray(win.spill_order.tap_entry).astype(np.int64)
+    ent = so.tap_entry.numpy().astype(np.int64)
     lrow, rrow = (ent[:, 1], ent[:, 0]) if flip else (ent[:, 0], ent[:, 1])
-    chunk = np.asarray(win.spill_order.chunk)
-    first = np.asarray(win.spill_order.tap_chunk)
+    chunk = so.chunk.numpy()
+    first = so.tap_chunk.numpy()
     absum = base.double().abs().clone()
     per_tap = np.zeros(k, np.int64)
     fl, dr = feats.double().abs(), dout.double().abs()
@@ -291,8 +417,8 @@ def test_spill_kernels_plain_match_tier_functions(plans, layout, pass_,
         absum[slot] += fl[lrow[rows]].t() @ dr[rrow[rows]]
         per_tap[slot] = rows.stop - rows.start
     m = torch.from_numpy(per_tap + 2).double()[:, None, None]
-    bound = 2 * m * 2.0 ** -24 * absum
-    assert ((got.double() - want.double()).abs() <= bound).all()
+    bound = 2 * m * U * absum
+    assert ((got.double() - want).abs() <= bound).all()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
